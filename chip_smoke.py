@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device  — requires CUDA; the card's name and power limit (nvidia-smi).
+2. build   — compiles the four CUDA kernels (K1 Poseidon2, K2 NTT, K3
+             sum-check rounds, K4 modular matmul) from ``src/repro_torch/csrc``
+             for sm_90a, one nvcc per source, all at once.
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the shapes of the d=128 attestation path, with the edge words
+             0, 1, P-1, P-2; results must be equal element for element.
+             Times kernel and plain version with CUDA events.
+4. golden  — attests the repository's 1-layer golden model on the card;
+             the v1/v2 bytes must equal tests/data/golden_v{1,2}.bin, the
+             port's verifier must accept both and reject a flipped byte.
+5. serve   — a ProofService on a 4-layer gpt2 chain at d=128 (random
+             weights from a seed) answers 3 seeded queries; each attestation
+             is verified against the ModelCard bytes.  The kernels' launch
+             counters are zeroed just before and read just after: every
+             kernel must have launched.  The last attest runs under
+             torch.profiler, for the device's busy share.
+
+Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and the final
+``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+DATA = os.path.join(ROOT, "tests", "data")
+P = 2013265921
+EDGE_WORDS = (0, 1, P - 1, P - 2)
+
+# The served configuration: the paper's headline width, also the full-run
+# width of benchmarks/table3_block_proof.py; depth and width are not cut.
+SERVE_CFG = dict(family="gpt2", d=128, dff=512, heads=4, kv_heads=4, dh=32,
+                 seq=8)
+SERVE_LAYERS = 4
+SERVE_QUERIES = 3
+PCS_BLOWUP = 4
+PCS_QUERIES = 16
+SEED = 0
+
+# Golden toy model: the config and seeds of tests/data/gen_golden.py.
+GOLDEN_CFG = dict(family="gpt2", d=8, dff=16, heads=1, kv_heads=1, dh=8,
+                  seq=4)
+GOLDEN_WEIGHT_SEED = 1234
+GOLDEN_QUERY_SEED = 5678
+
+# Peak rates of one H100 SXM (at its 700 W limit): HBM bandwidth, and the
+# INT32 issue rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Montgomery products in one Poseidon2 permutation: 4 per S-box (8 full
+# rounds x 16 lanes + 13 partial rounds x 1) and 16 per internal layer.
+PERM_MULS = 4 * (8 * 16 + 13) + 16 * 13
+F4_MULS = 16
+# Bytes of one field word in the bounds: the functions work on u32 words
+# (the port stores them in int64 tensors, which moves twice as many bytes).
+WORD_BYTES = 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(phase: str, msg: str) -> None:
+    emit({"phase": phase, "ok": False, "error": msg})
+    sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# Helpers.
+# ---------------------------------------------------------------------------
+def rand_words(gen, shape, dev):
+    """Uniform Montgomery words with the edge words planted at the front."""
+    import numpy as np
+    import torch
+    a = gen.integers(0, P, size=shape, dtype=np.int64)
+    flat = a.reshape(-1)
+    flat[:min(len(EDGE_WORDS), flat.size)] = EDGE_WORDS[:flat.size]
+    return torch.as_tensor(a, device=dev)
+
+
+def max_abs_err(a, b) -> int:
+    if a.shape != b.shape:
+        return -1
+    return int((a - b).abs().max().item()) if a.numel() else 0
+
+
+def gpu_ms(fn, iters: int = 3) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, mulmods: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mulmods / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main_path_shapes():
+    """Shapes the d=128 path hands each kernel: the weight commitment
+    (the largest: 2^19 words as 512 x 1024) and the aux commitment."""
+    from repro_torch.core import blocks as B
+    from repro_torch.core import circuit as C
+    from repro_torch.core import pcs as PCS
+    cfg = B.BlockCfg(**SERVE_CFG)
+    out = {}
+    for name, declare in (("wt", B.declare_weights), ("aux", B.declare_aux)):
+        wb = C.WitnessBuilder(name)
+        declare(cfg, wb, None)
+        _, _, total = wb.pack()
+        out[name] = PCS.shape_for(total)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+def check_kernels(dev, shapes, gen):
+    """Returns {name: record} with max_abs_err, ms, plain_ms, bound."""
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
+    from repro_torch.kernels import poseidon2_kernel as K1
+    from repro_torch.kernels import sumcheck_round as K3
+
+    (wr, wc), (ar, ac) = shapes["wt"], shapes["aux"]
+    R, C = 1 << wr, 1 << wc
+    nw = C * PCS_BLOWUP                       # encoded row length
+    rec = {}
+    errs = {"poseidon2": 0, "ntt": 0, "sumcheck_round": 0, "modmatmul": 0}
+    owner = {"K1": "poseidon2", "K2": "ntt", "K3": "sumcheck_round",
+             "K4": "modmatmul"}
+
+    def check(what, a, b):
+        e = max_abs_err(a, b)
+        name = owner[what.split()[0]]
+        errs[name] = max(errs[name], e) if e >= 0 else e
+        if e != 0:
+            fail("kernels", f"{what}: kernel != plain (max abs err {e})")
+
+    # K1: leaf hashing of the weight commitment (nw columns of R words),
+    # compress, permute, squeeze, multi-segment absorb from given states.
+    leaves = rand_words(gen, (nw, R), dev)
+    check("K1 hash_rows", K1.hash_rows(leaves),
+          K1.sponge_plain(None, leaves, R, 1, 8))
+    odd = rand_words(gen, (37, 13), dev)
+    check("K1 hash_rows L=13", K1.hash_rows(odd),
+          K1.sponge_plain(None, odd, 13, 1, 8))
+    l8, r8 = rand_words(gen, (nw // 2, 8), dev), rand_words(gen, (nw // 2, 8), dev)
+    check("K1 compress_pairs", K1.compress_pairs(l8, r8), K1.compress_plain(l8, r8))
+    st = rand_words(gen, (nw, 16), dev)
+    check("K1 permute_batch", K1.permute_batch(st), K1.permute_plain(st))
+    for a, b in zip(K1.squeeze(st[:3].contiguous(), 3), K1.squeeze_plain(st[:3], 3)):
+        check("K1 squeeze", a, b)
+    vals = rand_words(gen, (1, 4 * 21), dev)
+    check("K1 sponge segments", K1.sponge(st[:1].contiguous(), vals, 4, 21),
+          K1.sponge_plain(st[:1], vals, 4, 21))
+    k1_bytes = (leaves.numel() + nw * 8) * WORD_BYTES
+    k1_ops = nw * (-(-R // 8)) * PERM_MULS
+    rec["poseidon2"] = dict(
+        ms=gpu_ms(lambda: K1.hash_rows(leaves)),
+        plain_ms=gpu_ms(lambda: K1.sponge_plain(None, leaves, R, 1, 8), 1),
+        bound=bound_ms(k1_bytes, k1_ops),
+        shape=f"hash_rows {nw}x{R} (weight-commitment leaves)")
+
+    # K2: RS encoding rows of the weight and aux commitments, both
+    # directions, plus short rows that pack several to a block.
+    rows = rand_words(gen, (R, nw), dev)
+    for inv in (False, True):
+        check(f"K2 ntt inverse={inv}", K2.ntt_rows(rows, inv),
+              K2.ntt_rows_plain(rows, inv))
+    arows = rand_words(gen, (1 << ar, (1 << ac) * PCS_BLOWUP), dev)
+    check("K2 ntt aux", K2.ntt_rows(arows), K2.ntt_rows_plain(arows))
+    for n in (2, 4, 8, 64, 256):
+        small = rand_words(gen, (9, n), dev)
+        check(f"K2 ntt n={n}", K2.ntt_rows(small), K2.ntt_rows_plain(small))
+    n_lg = nw.bit_length() - 1
+    rec["ntt"] = dict(
+        ms=gpu_ms(lambda: K2.ntt_rows(rows)),
+        plain_ms=gpu_ms(lambda: K2.ntt_rows_plain(rows), 1),
+        bound=bound_ms((2 * rows.numel() + nw // 2) * WORD_BYTES,
+                       R * (nw // 2) * n_lg),
+        shape=f"ntt_rows {R}x{nw} (weight-commitment encoding)")
+
+    # K3: d = 1, 2, 3 at the aux commitment's length; the weight opening
+    # (d = 2 over R*C) for timing; K = 3 claims at once.
+    def k3_case(d, K, n):
+        fs = [rand_words(gen, (K, n, 4), dev) for _ in range(d)]
+        sts = rand_words(gen, (K, 16), dev)
+        for a, b in zip(K3.prove_rounds(fs, sts), K3.prove_rounds_plain(fs, sts)):
+            check(f"K3 d={d} K={K} n={n}", a, b)
+        return fs, sts
+
+    n_aux = 1 << (ar + ac)
+    for d in (1, 2, 3):
+        k3_case(d, 1, n_aux)
+    for d in (1, 2, 3):
+        k3_case(d, 3, 64)
+    fs, sts = k3_case(2, 1, R * C)
+    m = (R * C).bit_length() - 1
+    perms_per_round = -(-4 * 3 // 8) + 1
+    k3_ops = (R * C - 1) * (3 * 1 + 2) * F4_MULS + m * perms_per_round * PERM_MULS
+    k3_words = 2 * R * C * 4 + 16 + m * 3 * 4 + m * 4 + 2 * 4 + 16
+    k3_bytes = k3_words * WORD_BYTES
+    rec["sumcheck_round"] = dict(
+        ms=gpu_ms(lambda: K3.prove_rounds(fs, sts)),
+        plain_ms=gpu_ms(lambda: K3.prove_rounds_plain(fs, sts), 1),
+        bound=bound_ms(k3_bytes, k3_ops),
+        shape=f"prove_rounds d=2 K=1 n={R * C} (weight-commitment opening)")
+
+    # K4: the opening row u = eq^T . mat of both commitments, plus a tall
+    # M and an odd K for the ragged paths.
+    a = rand_words(gen, (4, R), dev)
+    b = rand_words(gen, (R, C), dev)
+    check("K4 modmatmul wt", K4.modmatmul(a, b), K4.modmatmul_plain(a, b))
+    a2, b2 = rand_words(gen, (4, 1 << ar), dev), rand_words(gen, (1 << ar, 1 << ac), dev)
+    check("K4 modmatmul aux", K4.modmatmul(a2, b2), K4.modmatmul_plain(a2, b2))
+    a3, b3 = rand_words(gen, (11, 33), dev), rand_words(gen, (33, 70), dev)
+    check("K4 modmatmul 11x33x70", K4.modmatmul(a3, b3), K4.modmatmul_plain(a3, b3))
+    rec["modmatmul"] = dict(
+        ms=gpu_ms(lambda: K4.modmatmul(a, b)),
+        plain_ms=gpu_ms(lambda: K4.modmatmul_plain(a, b), 1),
+        bound=bound_ms((4 * R + R * C + 4 * C) * WORD_BYTES, 4 * R * C),
+        shape=f"modmatmul 4x{R} @ {R}x{C} (weight-commitment opening row)")
+    for name, r in rec.items():
+        r["max_abs_err"] = errs[name]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the golden toy on the card.
+# ---------------------------------------------------------------------------
+def golden_phase(dev):
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(**GOLDEN_CFG)
+    weights = [B.init_weights(cfg, np.random.default_rng(GOLDEN_WEIGHT_SEED))]
+    qrng = np.random.default_rng(GOLDEN_QUERY_SEED)
+    query = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
+                    -32768, 32767).astype(np.int64)
+    gold = {}
+    for name in ("card", "v1", "v2"):
+        with open(os.path.join(DATA, f"golden_{name}.bin"), "rb") as fh:
+            gold[name] = fh.read()
+    policy = api.VerifyPolicy(pcs_queries=1)
+    t0 = time.monotonic()
+    with api.ProofService([cfg], weights, default_queries=1, workers=1,
+                          name="golden-model", device=dev) as svc:
+        card = svc.model_card.to_bytes()
+        att = svc.attest(query, policy, tokens=np.arange(3, dtype=np.int32))
+    prove_s = time.monotonic() - t0
+    if card != gold["card"]:
+        fail("golden", "ModelCard bytes differ from golden_card.bin")
+    att.prove_seconds = api.Attestation.from_bytes(gold["v1"]).prove_seconds
+    att.__dict__.pop("_wire_cache", None)
+    if att.to_bytes(1) != gold["v1"] or att.to_bytes(2) != gold["v2"]:
+        fail("golden", "attestation bytes differ from golden_v1/v2.bin")
+    for v in ("v1", "v2"):
+        rep = api.verify(gold[v], query, card, policy, device=dev)
+        if not rep.ok:
+            fail("golden", f"verify rejected golden {v}: {rep.reason}")
+        flipped = bytearray(gold[v])
+        flipped[len(flipped) // 2] ^= 0x01
+        if api.verify(bytes(flipped), query, card, policy, device=dev).ok:
+            fail("golden", f"verify accepted a flipped golden {v}")
+    return dict(prove_seconds=prove_s, v1_bytes=len(gold["v1"]),
+                v2_bytes=len(gold["v2"]))
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve 3 verified attestations at full width.
+# ---------------------------------------------------------------------------
+def serve_phase(dev):
+    """The last request's attest runs under torch.profiler (its time then
+    includes the profiler's cost; it is flagged ``profiled``)."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(**SERVE_CFG)
+    rng = np.random.default_rng(SEED)
+    weights = [B.init_weights(cfg, rng) for _ in range(SERVE_LAYERS)]
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, pcs_blowup=PCS_BLOWUP,
+               pcs_queries=PCS_QUERIES, requests=[])
+    with api.ProofService([cfg] * SERVE_LAYERS, weights,
+                          pcs_blowup=PCS_BLOWUP, default_queries=PCS_QUERIES,
+                          workers=1, name="chip-smoke", device=dev) as svc:
+        t0 = time.monotonic()
+        card = svc.model_card.to_bytes()
+        out["setup_seconds"] = time.monotonic() - t0
+        for q in range(SERVE_QUERIES):
+            qrng = np.random.default_rng(SEED + 1 + q)
+            x = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq))
+                                 * 256), -32768, 32767).astype(np.int64)
+            profiled = q == SERVE_QUERIES - 1
+            before = launch_counts()
+            t0 = time.monotonic()
+            if profiled:
+                att, out["profile"] = profiled_call(svc.attest, x, policy)
+            else:
+                att = svc.attest(x, policy)
+            wire = att.to_bytes(2)
+            t_att = time.monotonic() - t0
+            after = launch_counts()
+            rep = api.verify(wire, x, card, policy, device=dev)
+            if not rep.ok:
+                fail("serve", f"request {q}: verify rejected: {rep.reason}")
+            r = svc.last_report
+            out["requests"].append(dict(
+                seconds=t_att, forward_seconds=r.forward_seconds,
+                commit_seconds=r.commit_seconds,
+                prove_seconds=r.prove_seconds,
+                verify_seconds=rep.verify_seconds, wire_bytes=len(wire),
+                checked_layers=rep.checked_layers, profiled=profiled,
+                attest_launches={k: after[k] - before[k] for k in after}))
+    plain = sorted(r["seconds"] for r in out["requests"] if not r["profiled"])
+    if plain and out["profile"]["device_busy_ms"] is not None:
+        # device busy time of the traced attest over the median untraced one
+        out["profile"]["busy_share_of_untraced_request"] = (
+            out["profile"]["device_busy_ms"] / 1e3 / plain[len(plain) // 2])
+    return out
+
+
+def profiled_call(fn, *args):
+    """Run fn under torch.profiler, tracing device activity only; report
+    the device's busy time (the sum of kernel times) against the wall
+    time, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn(*args)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    summary = dict(wall_ms=wall * 1e3,
+                   device_busy_ms=busy if rows else None,
+                   busy_share=busy / (wall * 1e3) if rows else None,
+                   top=[dict(name=k[:80], ms=ms, count=c)
+                        for k, ms, c in rows[:12]])
+    return result, summary
+
+
+def kernel_modules():
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
+    from repro_torch.kernels import poseidon2_kernel as K1
+    from repro_torch.kernels import sumcheck_round as K3
+    return [
+        ("poseidon2", K1, "src/repro_torch/csrc/poseidon2.cu",
+         "src/repro/kernels/poseidon2_kernel.py:103"),
+        ("ntt", K2, "src/repro_torch/csrc/ntt.cu",
+         "src/repro/kernels/ntt_kernel.py:66"),
+        ("sumcheck_round", K3, "src/repro_torch/csrc/sumcheck_round.cu",
+         "src/repro/kernels/sumcheck_round.py:167"),
+        ("modmatmul", K4, "src/repro_torch/csrc/modmatmul.cu",
+         "src/repro/kernels/modmatmul.py:64"),
+    ]
+
+
+def launch_counts():
+    return {name: mod.launches for name, mod, _, _ in kernel_modules()}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs one CUDA card", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    import numpy as np
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi unavailable"
+    emit({"phase": "device", "ok": True, "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.monotonic()
+    try:
+        _build.build_all()
+    except RuntimeError as e:
+        fail("build", str(e))
+    emit({"phase": "build", "ok": True, "seconds": time.monotonic() - t0,
+          "libraries": [str(_build.library_path(n)) for n in _build.SOURCES]})
+
+    t0 = time.monotonic()
+    recs = check_kernels(dev, main_path_shapes(), np.random.default_rng(SEED))
+    emit({"phase": "kernels", "ok": True, "seconds": time.monotonic() - t0,
+          "max_abs_err": {k: v["max_abs_err"] for k, v in recs.items()},
+          "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"])
+                 for k, v in recs.items()}})
+
+    golden = golden_phase(dev)
+    emit({"phase": "golden", "ok": True, **golden})
+
+    mods = kernel_modules()
+    for _, mod, _, _ in mods:
+        mod.launches = 0
+    serve = serve_phase(dev)
+    launches = launch_counts()
+    emit({"phase": "serve", "ok": True, "launches": launches, **serve})
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        fail("serve", f"kernels never launched on the main path: {idle}")
+
+    kernels = []
+    for name, _, src, replaces in mods:
+        r = recs[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=None))
+    emit({"kernels": kernels})
+    print(smi_line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

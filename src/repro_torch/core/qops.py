@@ -1,0 +1,131 @@
+"""Quantized reference ops: the exact integer semantics of the circuit
+(mirrors ``repro.core.qops`` for the gpt2 family) on int64 tensors.
+
+Activations are signed 16-bit fixed point with f=8 fractional bits,
+feature-major (d, seq).  Rounding is round-half-up, floor((x + 2^(s-1)) / 2^s)
+— an arithmetic right shift.  Every range assertion of the JAX package is
+kept.  Integer products of two 16-bit operands summed over k terms stay far
+below 2^53, so the matrix products run exactly in float64 (CUDA has no
+int64 matmul); ``imatmul`` checks that bound.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from . import luts as LUTS
+
+F8 = 8           # activation fractional bits
+SOFTMAX_T = 8    # P carries f=8
+
+
+def rshift_round(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Round-half-up arithmetic shift (the rescale relation's semantics)."""
+    return (x + (1 << (s - 1))) >> s
+
+
+def shl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x * 2^s for signed x."""
+    return x * (1 << s)
+
+
+def _minmax(x: torch.Tensor):
+    return int(x.min().item()), int(x.max().item())
+
+
+def assert16(x: torch.Tensor, what: str) -> torch.Tensor:
+    lo, hi = _minmax(x)
+    assert lo >= -(1 << 15) and hi < (1 << 15), \
+        f"{what} exceeds provable 16-bit range: [{lo}, {hi}]"
+    return x
+
+
+def imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer matmul of int64 tensors through float64: every
+    partial sum is an integer below 2^53, so no rounding occurs."""
+    k = a.shape[-1]
+    amax = int(a.abs().max().item()) if a.numel() else 0
+    bmax = int(b.abs().max().item()) if b.numel() else 0
+    assert k * amax * bmax < 2**53, "integer matmul exceeds float64 exactness"
+    return torch.matmul(a.double(), b.double()).round().long()
+
+
+def lut_apply(name: str, idx: torch.Tensor):
+    """Table lookup on idx codes (callers produce in-range idx)."""
+    spec = LUTS.ALL_SPECS[name]
+    i = idx - LUTS.lo_code(name)
+    lo, hi = _minmax(i)
+    assert lo >= 0 and hi < LUTS.LUT_SIZE, \
+        f"{name} LUT input out of range [{spec.lo}, {spec.hi})"
+    return LUTS.table_tensor(name, idx.device)[i], i
+
+
+def q_matmul_rescale(wT: torch.Tensor, x: torch.Tensor,
+                     b: Optional[torch.Tensor], shift: int
+                     ) -> Dict[str, torch.Tensor]:
+    """y = round((wT @ x + 2^8 b) / 2^shift): (n,k)@(k,seq) -> (n,seq)."""
+    acc = imatmul(wT, x)
+    if b is not None:
+        acc = acc + shl(b[:, None], F8)
+    y = assert16(rshift_round(acc, shift), "matmul out")
+    err = acc + (1 << (shift - 1)) - shl(y, shift)
+    lo, hi = _minmax(err)
+    assert lo >= 0 and hi < (1 << shift)
+    return {"y": y, "err": err}
+
+
+def score_mult(dh: int) -> int:
+    """Public multiplier m ~= 2^9/sqrt(dh): score codes = acc*m >> 12."""
+    return int(round((1 << 9) / math.sqrt(dh)))
+
+
+def q_attention_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One head. q,k,v: (dh, seq) f8; mask: (seq, seq) 0/1 (row=query).
+    scores -> exp LUT -> division-free softmax -> P @ V."""
+    dh, seq = q.shape
+    tr: Dict[str, torch.Tensor] = {}
+    acc = imatmul(q.T, k)                                   # (seq, seq) f16
+    sacc = acc * score_mult(dh)
+    sidx = torch.clamp(rshift_round(sacc, 12), -(1 << 15), (1 << 15) - 1)
+    tr["err_s"] = torch.clamp(sacc + (1 << 11) - shl(sidx, 12), 0,
+                              (1 << 12) - 1)
+    tr["sidx"] = sidx
+    e, _ = lut_apply("exp", sidx)                           # f=6
+    tr["e"] = e
+    me = mask * e
+    S = me.sum(dim=1)                                       # (seq,)
+    assert int(S.min().item()) >= 1, "empty softmax row"
+    tr["S"] = S
+    # P = round(2^8 me / S): 2^8 me = P S + vres, vres in (-S/2, S/2]
+    num = shl(me, SOFTMAX_T)
+    Sc = S[:, None]
+    P = (num + Sc // 2) // Sc
+    vres = num - P * Sc
+    P = P - (vres * 2 <= -Sc).long()
+    vres = num - P * Sc
+    assert bool(((2 * vres > -Sc) & (2 * vres <= Sc)).all().item())
+    lo, hi = _minmax(P)
+    assert lo >= 0 and hi <= (1 << SOFTMAX_T), "P out of [0, 256]"
+    tr["P"] = P
+    tr["w1"] = 2 * vres + Sc - 1                            # in [0, 2S)
+    tr["w2"] = 2 * Sc - 1 - tr["w1"]
+    assert _minmax(tr["w1"])[0] >= 0 and _minmax(tr["w2"])[0] >= 0
+    o_acc = imatmul(v, P.T)                                 # (dh, seq) f16
+    o = assert16(rshift_round(o_acc, F8), "attention out")
+    tr["o"] = o
+    tr["err_o"] = o_acc + (1 << 7) - shl(o, F8)
+    return tr
+
+
+def q_act(name: str, x_acc: torch.Tensor, in_shift: int
+          ) -> Dict[str, torch.Tensor]:
+    """Activation LUT on a pre-activation accumulator (f=16 -> f_in=12)."""
+    idx = rshift_round(x_acc, in_shift)
+    err = x_acc + (1 << (in_shift - 1)) - shl(idx, in_shift)
+    spec = LUTS.ALL_SPECS[name]
+    assert16(idx, f"{name} input (must lie in [{spec.lo}, {spec.hi}))")
+    out, _ = lut_apply(name, idx)
+    return {"idx": idx, "out": out, "err": err}

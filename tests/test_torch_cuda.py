@@ -1,0 +1,104 @@
+"""The port's four CUDA kernels against their plain versions, and the golden
+attestation, on the card.  Skipped where there is no card; on one:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports the JAX package, which the
+card's machine need not have; nothing here imports it.)"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+P = 2013265921
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+def _words(seed, shape, dev):
+    a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.int64)
+    flat = a.reshape(-1)
+    k = min(4, flat.size)
+    flat[:k] = [0, 1, P - 1, P - 2][:k]
+    return torch.as_tensor(a, device=dev)
+
+
+def _same(a, b):
+    torch.cuda.synchronize()
+    return a.shape == b.shape and bool((a == b).all().item())
+
+
+def test_k1_poseidon2(dev):
+    from repro_torch.kernels import poseidon2_kernel as K1
+    for L in (1, 8, 13, 64):
+        e = _words(L, (33, L), dev)
+        assert _same(K1.hash_rows(e), K1.sponge_plain(None, e, L, 1, 8))
+    l, r = _words(1, (40, 8), dev), _words(2, (40, 8), dev)
+    assert _same(K1.compress_pairs(l, r), K1.compress_plain(l, r))
+    s = _words(3, (300, 16), dev)
+    assert _same(K1.permute_batch(s), K1.permute_plain(s))
+    for a, b in zip(K1.squeeze(s[:2].contiguous(), 2), K1.squeeze_plain(s[:2], 2)):
+        assert _same(a, b)
+    v = _words(4, (2, 36), dev)
+    assert _same(K1.sponge(s[:2].contiguous(), v, 4, 9),
+                 K1.sponge_plain(s[:2], v, 4, 9))
+
+
+def test_k2_ntt(dev):
+    from repro_torch.kernels import ntt_kernel as K2
+    for lg in range(1, 13):
+        x = _words(lg, (5, 1 << lg), dev)
+        for inv in (False, True):
+            assert _same(K2.ntt_rows(x, inv), K2.ntt_rows_plain(x, inv))
+
+
+def test_k3_sumcheck_rounds(dev):
+    from repro_torch.kernels import sumcheck_round as K3
+    for d in (1, 2, 3):
+        for K in (1, 3):
+            for lg in (1, 4, 8, 12):
+                fs = [_words(100 * d + 10 * K + lg + t, (K, 1 << lg, 4), dev)
+                      for t in range(d)]
+                st = _words(7 * lg + d, (K, 16), dev)
+                for a, b in zip(K3.prove_rounds(fs, st),
+                                K3.prove_rounds_plain(fs, st)):
+                    assert _same(a, b)
+
+
+def test_k4_modmatmul(dev):
+    from repro_torch.kernels import modmatmul as K4
+    for (M, K, N) in ((4, 512, 1024), (4, 1, 3), (11, 33, 70), (9, 2, 40)):
+        a, b = _words(M, (M, K), dev), _words(N, (K, N), dev)
+        assert _same(K4.modmatmul(a, b), K4.modmatmul_plain(a, b))
+
+
+def test_golden_attestation_on_card(dev):
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(family="gpt2", d=8, dff=16, heads=1, kv_heads=1, dh=8,
+                     seq=4)
+    weights = [B.init_weights(cfg, np.random.default_rng(1234))]
+    qrng = np.random.default_rng(5678)
+    query = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
+                    -32768, 32767).astype(np.int64)
+    with api.ProofService([cfg], weights, default_queries=1, workers=1,
+                          name="golden-model", device=dev) as svc:
+        att = svc.attest(query, api.VerifyPolicy(pcs_queries=1),
+                         tokens=np.arange(3, dtype=np.int32))
+    gold = {}
+    for v in (1, 2):
+        with open(os.path.join(DATA, f"golden_v{v}.bin"), "rb") as fh:
+            gold[v] = fh.read()
+    att.prove_seconds = api.Attestation.from_bytes(gold[1]).prove_seconds
+    att.__dict__.pop("_wire_cache", None)
+    assert att.to_bytes(1) == gold[1]
+    assert att.to_bytes(2) == gold[2]

@@ -1,0 +1,120 @@
+"""K2 (NTT) and K4 (modular matmul) plain versions, Merkle trees and PCS
+commitments of repro_torch against the JAX package, exact equality."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from repro.core import merkle as JM
+from repro.core import mle as JMLE
+from repro.core import ntt as JNTT
+from repro.core import pcs as JPCS
+from repro.kernels import ops as KOPS
+from repro.kernels import ref as KREF
+from repro_torch.core import field as F
+from repro_torch.core import merkle as M
+from repro_torch.core import mle as MLE
+from repro_torch.core import ntt as NTT
+from repro_torch.core import pcs as PCS
+from repro_torch.kernels import modmatmul as K4
+from repro_torch.kernels import ntt_kernel as K2
+
+P = F.P
+
+
+def _words(seed, shape):
+    a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.int64)
+    flat = a.reshape(-1)
+    k = min(4, flat.size)
+    flat[:k] = [0, 1, P - 1, P - 2][:k]
+    return a.astype(np.uint32)
+
+
+def _t(a):
+    return F.tensor(a, "cpu")
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+def test_k2_plain_matches_ntt(n):
+    x = _words(n, (3, n))
+    for inverse in (False, True):
+        want = np.asarray(JNTT.ntt(jnp.asarray(x), inverse=inverse))
+        assert np.array_equal(want, F.to_np(K2.ntt_rows_plain(_t(x), inverse)))
+    assert np.array_equal(np.asarray(JNTT.rs_encode(jnp.asarray(x), 4)),
+                          F.to_np(NTT.rs_encode(_t(x), 4)))
+
+
+def test_merkle_roots_and_paths():
+    leaves = _words(1, (13, 5))                 # 13 leaves: padded to 16
+    jt, tt = JM.commit(jnp.asarray(leaves)), M.commit(_t(leaves))
+    assert np.array_equal(np.asarray(jt.root), F.to_np(tt.root))
+    for i in (0, 5, 12):
+        jp, tp = JM.open_path(jt, i), M.open_path(tt, i)
+        assert np.array_equal(jp.siblings, tp.siblings)
+        assert M.verify_path(F.to_np(tt.root), leaves[i], tp, "cpu")
+    idx = [3, 0, 7, 3, 12]
+    jmp = JM.build_multiproof(jt, jnp.asarray(leaves), idx)
+    tmp = M.build_multiproof(tt, _t(leaves), idx)
+    for f in ("indices", "leaves", "nodes"):
+        assert np.array_equal(getattr(jmp, f), getattr(tmp, f))
+    ported = M.MerkleMultiProof(indices=jmp.indices, leaves=jmp.leaves,
+                                nodes=jmp.nodes, depth=jmp.depth)
+    assert M.verify_multiproof(F.to_np(tt.root), ported, "cpu")
+    assert not M.verify_multiproof(F.to_np(tt.root), jmp, "cpu")  # foreign type
+    bad = M.MerkleMultiProof(indices=jmp.indices, leaves=jmp.leaves,
+                             nodes=jmp.nodes[:-1], depth=jmp.depth)
+    assert not M.verify_multiproof(F.to_np(tt.root), bad, "cpu")
+    batch = _words(2, (3, 8, 4))
+    for jtree, ttree in zip(JM.commit_batch(jnp.asarray(batch)),
+                            M.commit_batch(_t(batch))):
+        assert np.array_equal(np.asarray(jtree.root), F.to_np(ttree.root))
+
+
+@pytest.fixture(scope="module")
+def params():
+    return JPCS.PCSParams(blowup=4, queries=8), PCS.PCSParams(blowup=4, queries=8)
+
+
+def test_pcs_commit_and_commit_batch_roots(params):
+    jp, tp = params
+    vec = _words(3, (200,))
+    assert np.array_equal(JPCS.commit(jnp.asarray(vec), jp).root,
+                          PCS.commit(_t(vec), tp).root)
+    vecs = [_words(4 + i, (100,)) for i in range(3)]
+    for jc, tc in zip(JPCS.commit_batch([jnp.asarray(v) for v in vecs], jp),
+                      PCS.commit_batch([_t(v) for v in vecs], tp)):
+        assert np.array_equal(jc.root, tc.root)
+        assert np.array_equal(np.asarray(jc.enc), F.to_np(tc.enc))
+
+
+def test_k4_plain_matches_modmatmul_ref():
+    a, b = _words(5, (4, 32)), _words(6, (32, 16))
+    want = np.asarray(KREF.modmatmul_ref(jnp.asarray(a), jnp.asarray(b)))
+    assert np.array_equal(want, F.to_np(K4.modmatmul_plain(_t(a), _t(b))))
+    assert np.array_equal(want, F.to_np(K4.modmatmul(_t(a), _t(b))))
+
+
+def test_k4_partial_eval_rows_mm():
+    mat, r = _words(7, (8, 16)), _words(8, (3, 4))
+    want = np.asarray(KOPS.partial_eval_rows_mm(jnp.asarray(mat), jnp.asarray(r)))
+    assert np.array_equal(want, F.to_np(K4.partial_eval_rows_mm(_t(mat), _t(r))))
+    assert np.array_equal(
+        np.asarray(JMLE.partial_eval_rows(jnp.asarray(mat), jnp.asarray(r))),
+        F.to_np(MLE.partial_eval_rows(_t(mat), _t(r))))
+
+
+def test_mle_helpers():
+    v, r, r4 = _words(9, (32,)), _words(10, (5, 4)), _words(11, (32, 4))
+    assert np.array_equal(np.asarray(JMLE.eq_points(jnp.asarray(r))),
+                          F.to_np(MLE.eq_points(_t(r))))
+    assert np.array_equal(np.asarray(JMLE.mle_eval_base(jnp.asarray(v), jnp.asarray(r))),
+                          F.to_np(MLE.mle_eval_base(_t(v), _t(r))))
+    assert np.array_equal(np.asarray(JMLE.mle_eval_f4(jnp.asarray(r4), jnp.asarray(r))),
+                          F.to_np(MLE.mle_eval_f4(_t(r4), _t(r))))
+    rho = _words(12, (5, 4))
+    assert np.array_equal(np.asarray(JMLE.eq_eval(jnp.asarray(r), jnp.asarray(rho))),
+                          F.to_np(MLE.eq_eval(_t(r), _t(rho))))
+    mat = _words(13, (4, 8))
+    assert np.array_equal(
+        np.asarray(JMLE.partial_eval_cols(jnp.asarray(mat), jnp.asarray(r[:3]))),
+        F.to_np(MLE.partial_eval_cols(_t(mat), _t(r[:3]))))
