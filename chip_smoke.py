@@ -6,22 +6,32 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  — requires CUDA; the card's name and power limit (nvidia-smi).
-2. build   — compiles the four CUDA kernels (K1 Poseidon2, K2 NTT, K3
-             sum-check rounds, K4 modular matmul) from ``src/repro_torch/csrc``
-             for sm_90a, one nvcc per source, all at once.
+2. build   — compiles the five CUDA kernels (K1 Poseidon2, K2 NTT, K3
+             sum-check rounds, K4 modular matmul, K5 sum-check fold) from
+             ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all
+             at once.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the d=128 attestation path, with the edge words
-             0, 1, P-1, P-2; results must be equal element for element.
-             Times kernel and plain version with CUDA events.
+             the shapes of the d=128 attestation path (K5: the largest
+             sum-check claim of that path, and a sweep of small ones), with
+             the edge words 0, 1, P-1, P-2; results must be equal element
+             for element.  Times kernel and plain version with CUDA events.
 4. golden  — attests the repository's 1-layer golden model on the card;
              the v1/v2 bytes must equal tests/data/golden_v{1,2}.bin, the
              port's verifier must accept both and reject a flipped byte.
 5. serve   — a ProofService on a 4-layer gpt2 chain at d=128 (random
              weights from a seed) answers 3 seeded queries; each attestation
              is verified against the ModelCard bytes.  The kernels' launch
-             counters are zeroed just before and read just after: every
-             kernel must have launched.  The last attest runs under
+             counters are zeroed just before and read just after: K1-K4
+             must have launched.  The last attest runs under
              torch.profiler, for the device's busy share.
+6. analysis — the soundness analysis in-process on the card
+             (``python -m repro_torch.analysis --all --mutants``): zero
+             findings, every kernel equal to its plain version on edge
+             words, all six mutants caught.  Then one more attestation of
+             the served chain, recorded, and the Fiat-Shamir and tape
+             lints over it: zero findings.  The counters are zeroed just
+             before and read just after: all five kernels, K5 among them
+             (it runs on this path only), must have launched.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
@@ -141,15 +151,17 @@ def check_kernels(dev, shapes, gen):
     from repro_torch.kernels import modmatmul as K4
     from repro_torch.kernels import ntt_kernel as K2
     from repro_torch.kernels import poseidon2_kernel as K1
+    from repro_torch.kernels import sumcheck_fold as K5
     from repro_torch.kernels import sumcheck_round as K3
 
     (wr, wc), (ar, ac) = shapes["wt"], shapes["aux"]
     R, C = 1 << wr, 1 << wc
     nw = C * PCS_BLOWUP                       # encoded row length
     rec = {}
-    errs = {"poseidon2": 0, "ntt": 0, "sumcheck_round": 0, "modmatmul": 0}
+    errs = {"poseidon2": 0, "ntt": 0, "sumcheck_round": 0, "modmatmul": 0,
+            "sumcheck_fold": 0}
     owner = {"K1": "poseidon2", "K2": "ntt", "K3": "sumcheck_round",
-             "K4": "modmatmul"}
+             "K4": "modmatmul", "K5": "sumcheck_fold"}
 
     def check(what, a, b):
         e = max_abs_err(a, b)
@@ -242,6 +254,34 @@ def check_kernels(dev, shapes, gen):
         plain_ms=gpu_ms(lambda: K4.modmatmul_plain(a, b), 1),
         bound=bound_ms((4 * R + R * C + 4 * C) * WORD_BYTES, 4 * R * C),
         shape=f"modmatmul 4x{R} @ {R}x{C} (weight-commitment opening row)")
+
+    # K5: one round with a known challenge at the largest sum-check claim
+    # of the path (d = 2 over R*C, K3's timed shape), d = 3 at 2^17, the
+    # single pair n = 2, and a sweep of small n.
+    def k5_case(d, n):
+        fs = [rand_words(gen, (n, 4), dev) for _ in range(d)]
+        c = rand_words(gen, (4,), dev)
+        (g, folded), (pg, pfolded) = K5.fold_round(fs, c), K5.fold_round_plain(fs, c)
+        check(f"K5 d={d} n={n} g", g, pg)
+        for t, (a, b) in enumerate(zip(folded, pfolded)):
+            check(f"K5 d={d} n={n} folded[{t}]", a, b)
+        return fs, c
+
+    k5_case(3, 1 << 17)
+    k5_case(1, 2)
+    for d in (1, 2, 3):
+        for lg in (1, 2, 3, 4, 6, 8, 10):
+            k5_case(d, 1 << lg)
+    fs, c = k5_case(2, R * C)
+    half = R * C // 2
+    k5_words = 2 * R * C * 4 + 4 + 2 * half * 4 + 3 * 4
+    _, prof = profiled_call(lambda: [K5.fold_round(fs, c) for _ in range(20)])
+    rec["sumcheck_fold"] = dict(
+        ms=gpu_ms(lambda: K5.fold_round(fs, c), 20),
+        device_ms=prof["device_busy_ms"] / 20 if prof["device_busy_ms"] else None,
+        plain_ms=gpu_ms(lambda: K5.fold_round_plain(fs, c), 1),
+        bound=bound_ms(k5_words * WORD_BYTES, half * (3 * 1 + 2) * F4_MULS),
+        shape=f"fold_round d=2 n={R * C} (the weight-commitment opening's claim)")
     for name, r in rec.items():
         r["max_abs_err"] = errs[name]
     return rec
@@ -291,28 +331,42 @@ def golden_phase(dev):
 # ---------------------------------------------------------------------------
 # Phase 5: serve 3 verified attestations at full width.
 # ---------------------------------------------------------------------------
-def serve_phase(dev):
-    """The last request's attest runs under torch.profiler (its time then
-    includes the profiler's cost; it is flagged ``profiled``)."""
+def serve_service(dev):
+    """The served ProofService: a 4-layer d=128 chain, weights from SEED."""
     import numpy as np
     from repro_torch import api
     from repro_torch.core import blocks as B
     cfg = B.BlockCfg(**SERVE_CFG)
     rng = np.random.default_rng(SEED)
     weights = [B.init_weights(cfg, rng) for _ in range(SERVE_LAYERS)]
+    return api.ProofService([cfg] * SERVE_LAYERS, weights,
+                            pcs_blowup=PCS_BLOWUP, default_queries=PCS_QUERIES,
+                            workers=1, name="chip-smoke", device=dev)
+
+
+def serve_query(q: int):
+    """Request q's query (seeded), shaped for SERVE_CFG."""
+    import numpy as np
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(**SERVE_CFG)
+    qrng = np.random.default_rng(SEED + 1 + q)
+    return np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
+                   -32768, 32767).astype(np.int64)
+
+
+def serve_phase(dev):
+    """The last request's attest runs under torch.profiler (its time then
+    includes the profiler's cost; it is flagged ``profiled``)."""
+    from repro_torch import api
     policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
     out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, pcs_blowup=PCS_BLOWUP,
                pcs_queries=PCS_QUERIES, requests=[])
-    with api.ProofService([cfg] * SERVE_LAYERS, weights,
-                          pcs_blowup=PCS_BLOWUP, default_queries=PCS_QUERIES,
-                          workers=1, name="chip-smoke", device=dev) as svc:
+    with serve_service(dev) as svc:
         t0 = time.monotonic()
         card = svc.model_card.to_bytes()
         out["setup_seconds"] = time.monotonic() - t0
         for q in range(SERVE_QUERIES):
-            qrng = np.random.default_rng(SEED + 1 + q)
-            x = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq))
-                                 * 256), -32768, 32767).astype(np.int64)
+            x = serve_query(q)
             profiled = q == SERVE_QUERIES - 1
             before = launch_counts()
             t0 = time.monotonic()
@@ -339,6 +393,47 @@ def serve_phase(dev):
         # device busy time of the traced attest over the median untraced one
         out["profile"]["busy_share_of_untraced_request"] = (
             out["profile"]["device_busy_ms"] / 1e3 / plain[len(plain) // 2])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the soundness analysis on the card, and a recorded full-width
+# attestation linted.
+# ---------------------------------------------------------------------------
+def analysis_phase(dev):
+    from repro_torch import api
+    from repro_torch.analysis import fs_lint, tape_lint
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.replay import ReplayLog, recording
+    out = {}
+    t0 = time.monotonic()
+    rc = analysis_main(["--all", "--mutants", "--device", dev.type])
+    out["analysis_seconds"] = time.monotonic() - t0
+    if rc != 0:
+        fail("analysis", f"python -m repro_torch.analysis exited {rc}")
+    log = ReplayLog()
+    t0 = time.monotonic()
+    with serve_service(dev) as svc, recording(log):
+        svc.attest(serve_query(SERVE_QUERIES),
+                   api.VerifyPolicy(pcs_queries=PCS_QUERIES))
+    out["replay_attest_seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    findings = fs_lint.replay_checks(log) + tape_lint.replay_checks(log)
+    out["replay_lint_seconds"] = time.monotonic() - t0
+    out["replay_events"] = len(log.events)
+    # fs_lint sums the union bound k n / (4P) of every index sample of a
+    # prove against a ceiling sized for the golden prove (BIAS_TOTAL_MAX,
+    # the JAX package's constant); a full-width prove exceeds it by
+    # construction, in both packages.  It is reported here, not failed on.
+    # The per-index bias n / (4P) that the soundness budget charges is
+    # checked per call and fails this phase like every other finding.
+    tripwire = [f for f in findings
+                if (f.category, f.where) == ("index-bias", "golden-prove")]
+    out["golden_sized_bias_tripwire"] = [f.detail for f in tripwire]
+    findings = [f for f in findings if f not in tripwire]
+    if findings:
+        fail("analysis", "full-width replay: "
+             + "; ".join(str(f) for f in findings[:10]))
     return out
 
 
@@ -374,6 +469,7 @@ def kernel_modules():
     from repro_torch.kernels import modmatmul as K4
     from repro_torch.kernels import ntt_kernel as K2
     from repro_torch.kernels import poseidon2_kernel as K1
+    from repro_torch.kernels import sumcheck_fold as K5
     from repro_torch.kernels import sumcheck_round as K3
     return [
         ("poseidon2", K1, "src/repro_torch/csrc/poseidon2.cu",
@@ -384,7 +480,20 @@ def kernel_modules():
          "src/repro/kernels/sumcheck_round.py:167"),
         ("modmatmul", K4, "src/repro_torch/csrc/modmatmul.cu",
          "src/repro/kernels/modmatmul.py:64"),
+        ("sumcheck_fold", K5, "src/repro_torch/csrc/sumcheck_fold.cu",
+         "src/repro/kernels/sumcheck_fold.py:84"),
     ]
+
+
+# The kernels each path must launch: the serve path runs K1-K4 (nothing on
+# it calls K5); the analysis path runs all five.
+SERVE_KERNELS = ("poseidon2", "ntt", "sumcheck_round", "modmatmul")
+ANALYSIS_KERNELS = SERVE_KERNELS + ("sumcheck_fold",)
+
+
+def reset_counts() -> None:
+    for _, mod, _, _ in kernel_modules():
+        mod.launches = 0
 
 
 def launch_counts():
@@ -427,28 +536,38 @@ def main() -> int:
     recs = check_kernels(dev, main_path_shapes(), np.random.default_rng(SEED))
     emit({"phase": "kernels", "ok": True, "seconds": time.monotonic() - t0,
           "max_abs_err": {k: v["max_abs_err"] for k, v in recs.items()},
-          "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"])
+          "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"],
+                         kernels_device_ms=v.get("device_ms"))
                  for k, v in recs.items()}})
 
     golden = golden_phase(dev)
     emit({"phase": "golden", "ok": True, **golden})
 
-    mods = kernel_modules()
-    for _, mod, _, _ in mods:
-        mod.launches = 0
+    reset_counts()
     serve = serve_phase(dev)
-    launches = launch_counts()
-    emit({"phase": "serve", "ok": True, "launches": launches, **serve})
-    idle = [n for n, c in launches.items() if c == 0]
+    serve_launches = launch_counts()
+    emit({"phase": "serve", "ok": True, "launches": serve_launches, **serve})
+    idle = [n for n in SERVE_KERNELS if serve_launches[n] == 0]
     if idle:
         fail("serve", f"kernels never launched on the main path: {idle}")
 
+    reset_counts()
+    analysis = analysis_phase(dev)
+    analysis_launches = launch_counts()
+    emit({"phase": "analysis", "ok": True, "launches": analysis_launches,
+          **analysis})
+    idle = [n for n in ANALYSIS_KERNELS if analysis_launches[n] == 0]
+    if idle:
+        fail("analysis", f"kernels never launched on the analysis path: {idle}")
+
     kernels = []
-    for name, _, src, replaces in mods:
+    for name, _, src, replaces in kernel_modules():
         r = recs[name]
+        launches = (serve_launches if name in SERVE_KERNELS
+                    else analysis_launches)[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
+            launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None))
     emit({"kernels": kernels})

@@ -11,6 +11,12 @@ on malformed input.
 
 Not ported yet: Fisher-guided selection, ``attest_many``,
 ``StreamingVerifier`` and ``verify_batch``.
+
+Lock order (ranked in repro_torch.analysis.locks): ``ProofService._lock`` is
+rank 20, the outermost lock of the port (the gateway's rank 10 is not
+ported yet).  It may be held while acquiring the weight-cache (rank 40),
+scheduler (rank 50) or leaf (rank 70) locks, the kernel build lock among
+them.
 """
 from __future__ import annotations
 

@@ -204,3 +204,32 @@ def f4inv(a: torch.Tensor) -> torch.Tensor:
         conj = f4mul(conj, aj)
     n = f4mul(a, conj)
     return f4mul_base(conj, finv(n[..., 0]))
+
+
+# ---------------------------------------------------------------------------
+# Static-analysis metadata, consumed by ``repro_torch.analysis.ranges``.
+# ---------------------------------------------------------------------------
+# Declared input bounds per primitive: name -> dict(fn, args, out), the
+# JAX package's table less its uint32 limb multiply, which the port does
+# not have.  args: (kind, shape) pairs, kind "fp" = Montgomery residue in
+# [0, P); out "fp": every output must provably stay in [0, P).  ranges.py
+# traces each fn to an aten graph and proves that no int64 intermediate can
+# overflow — the "< 2^62" and "< 2^39" comments above as checked facts.
+ANALYSIS_BOUNDS = {
+    "fmul": dict(fn=lambda a, b: fmul(a, b),
+                 args=(("fp", (8,)), ("fp", (8,))), out="fp"),
+    "fadd": dict(fn=lambda a, b: fadd(a, b),
+                 args=(("fp", (8,)), ("fp", (8,))), out="fp"),
+    "fsub": dict(fn=lambda a, b: fsub(a, b),
+                 args=(("fp", (8,)), ("fp", (8,))), out="fp"),
+    "fneg": dict(fn=lambda a: fneg(a), args=(("fp", (8,)),), out="fp"),
+    "finv": dict(fn=lambda a: finv(a), args=(("fp", (8,)),), out="fp"),
+    "to_mont": dict(fn=lambda x: to_mont(x), args=(("fp", (8,)),), out="fp"),
+    "from_mont": dict(fn=lambda a: from_mont(a),
+                      args=(("fp", (8,)),), out="fp"),
+    "f4_from_base": dict(fn=lambda a: f4_from_base(a),
+                         args=(("fp", (8,)),), out="fp"),
+    "f4mul": dict(fn=lambda a, b: f4mul(a, b),
+                  args=(("fp", (8, 4)), ("fp", (8, 4))), out="fp"),
+    "f4inv": dict(fn=lambda a: f4inv(a), args=(("fp", (8, 4)),), out="fp"),
+}

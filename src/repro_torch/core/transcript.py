@@ -18,8 +18,8 @@ from repro_torch.kernels import poseidon2_kernel as K1
 from . import field as F
 from . import poseidon2 as P2
 
-# Analysis hook sites, kept as in the JAX package: a recorder observing
-# every transcript event.  None in production; no analysis is ported yet.
+# Analysis hook site, kept as in the JAX package: a recorder observing
+# every transcript event (repro_torch.analysis.replay).  None in production.
 _RECORDER = None
 
 
@@ -72,6 +72,9 @@ class Transcript:
         """Absorb each row of a (k, w) array in turn — k calls of
         ``absorb`` in one sponge launch."""
         k, w = values.shape
+        if _RECORDER is not None:
+            for row in F.to_np(values):
+                _RECORDER.on_absorb(self, row)
         self._state = K1.sponge(self._state.reshape(1, P2.WIDTH),
                                 values.reshape(1, k * w).contiguous(), w,
                                 nseg=k)[0]
@@ -107,6 +110,14 @@ class Transcript:
         if n == 0:
             return torch.zeros((0, 4), dtype=F.I64, device=self.device)
         return self._squeeze(4 * n).reshape(n, 4)
+
+    # Modulo-bias bound for challenge_indices, as in the JAX package: a
+    # squeezed lane is uniform on [0, P), so reducing it mod n leaves each
+    # index within total-variation distance n / (4P) of uniform; that term
+    # is charged to the soundness budget (chain.soundness_bound,
+    # "index_bias").  INDEX_BIAS_PER_CALL is the union bound k n / (4P) of
+    # one call, a diagnostic that analysis.fs_lint sums over a prove.
+    INDEX_BIAS_PER_CALL = staticmethod(lambda n, k: k * n / (4 * F.P))
 
     def challenge_indices(self, n: int, k: int) -> np.ndarray:
         """k query indices in [0, n): the canonical lane value mod n."""

@@ -8,6 +8,10 @@ directory (``$XDG_CACHE_HOME/repro_torch``, by default
 and header plus the flags, so an edited source rebuilds and an unchanged
 one is loaded as it is.  ``build_all`` starts one nvcc per source at once.
 A missing nvcc, a failed build or a failed load raises.
+
+Lock order (ranked in repro_torch.analysis.locks): ``_LOCK`` is a rank-70
+leaf.  It is taken at a kernel's first use, possibly under the service
+lock (rank 20), and no other lock is ever acquired while it is held.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ def build_dir(module: Path) -> Path:
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = build_dir(Path(__file__).resolve())
-SOURCES = ("poseidon2", "ntt", "sumcheck_round", "modmatmul")
+SOURCES = ("poseidon2", "ntt", "sumcheck_round", "modmatmul", "sumcheck_fold")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

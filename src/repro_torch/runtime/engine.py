@@ -10,6 +10,11 @@
 Proving is Fiat-Shamir deterministic, so the proofs do not depend on the
 worker count.  The process backend, the cross-layer sum-check round
 batcher and ``prove_many`` are not ported yet.
+
+Lock order (ranked in repro_torch.analysis.locks): ``WeightCommitCache._lock``
+is rank 40.  It may be taken under the service lock (rank 20) and is held
+only for dictionary bookkeeping: no other lock is acquired while it is
+held, and the weight setup itself runs outside it.
 """
 from __future__ import annotations
 

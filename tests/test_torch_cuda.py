@@ -1,11 +1,14 @@
-"""The port's four CUDA kernels against their plain versions, and the golden
-attestation, on the card.  Skipped where there is no card; on one:
+"""The port's five CUDA kernels against their plain versions, the golden
+attestation, and the soundness analysis, on the card.  Skipped where there
+is no card; on one:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports the JAX package, which the
 card's machine need not have; nothing here imports it.)"""
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -79,6 +82,32 @@ def test_k4_modmatmul(dev):
     for (M, K, N) in ((4, 512, 1024), (4, 1, 3), (11, 33, 70), (9, 2, 40)):
         a, b = _words(M, (M, K), dev), _words(N, (K, N), dev)
         assert _same(K4.modmatmul(a, b), K4.modmatmul_plain(a, b))
+
+
+def test_k5_sumcheck_fold(dev):
+    from repro_torch.kernels import sumcheck_fold as K5
+    cases = [(d, lg) for d in (1, 2, 3) for lg in (1, 2, 3, 5, 8, 9, 12, 17)]
+    cases += [(2, 19), (1, 20)]        # more pairs than threads in the grid
+    for d, lg in cases:
+        fs = [_words(1000 * d + 10 * lg + t, (1 << lg, 4), dev)
+              for t in range(d)]
+        c = _words(7 * lg + d, (4,), dev)
+        (g, folded), (pg, pfolded) = K5.fold_round(fs, c), K5.fold_round_plain(fs, c)
+        assert _same(g, pg)
+        assert len(folded) == d and all(_same(a, b) for a, b in zip(folded, pfolded))
+
+
+def test_analysis_cli_on_card(dev):
+    """``python -m repro_torch.analysis --all --mutants`` on the card: zero
+    findings, every kernel equal to its plain version on edge words, all
+    six mutants caught."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--all", "--mutants"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=1200)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "[analysis] OK" in proc.stdout
 
 
 def test_golden_attestation_on_card(dev):
