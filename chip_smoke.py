@@ -15,6 +15,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sum-check claim of that path, and a sweep of small ones), with
              the edge words 0, 1, P-1, P-2; results must be equal element
              for element.  Times kernel and plain version with CUDA events.
+   k1k3    — K1 and K3 at the main path's dominant shapes (a one-row
+             4096-word and 4-word sponge, hash_rows 4096x512, K3 at d = 2
+             and 3 for n = 1024 and d = 2 for n = 2^19): CUDA-event and
+             profiler device ms per call, launches per call, bound, and for
+             K1 the microseconds per permutation of the serial chain.
 4. golden  — attests the repository's 1-layer golden model on the card;
              the v1/v2 bytes must equal tests/data/golden_v{1,2}.bin, the
              port's verifier must accept both and reject a flipped byte.
@@ -187,6 +192,21 @@ def check_kernels(dev, shapes, gen):
     vals = rand_words(gen, (1, 4 * 21), dev)
     check("K1 sponge segments", K1.sponge(st[:1].contiguous(), vals, 4, 21),
           K1.sponge_plain(st[:1], vals, 4, 21))
+    # the transcript's one-row absorbs from a given state (4 words per
+    # gadget value; 3243 and 4096 words in the PCS), rows that leave warps
+    # partly full, squeezes of 1..9 blocks
+    st1 = st[:1].contiguous()
+    for L in (1, 4, 9, 3243, 4096):
+        e = rand_words(gen, (1, L), dev)
+        check(f"K1 sponge 1x{L}", K1.sponge(st1, e, L), K1.sponge_plain(st1, e, L))
+    for n in (1, 3, 17, 33):
+        e = rand_words(gen, (n, 24), dev)
+        check(f"K1 hash_rows {n}x24", K1.hash_rows(e),
+              K1.sponge_plain(None, e, 24, 1, 8))
+    for nb in (1, 9):
+        for a, b in zip(K1.squeeze(st[:3].contiguous(), nb),
+                        K1.squeeze_plain(st[:3], nb)):
+            check(f"K1 squeeze nblocks={nb}", a, b)
     k1_bytes = (leaves.numel() + nw * 8) * WORD_BYTES
     k1_ops = nw * (-(-R // 8)) * PERM_MULS
     rec["poseidon2"] = dict(
@@ -228,16 +248,18 @@ def check_kernels(dev, shapes, gen):
         k3_case(d, 1, n_aux)
     for d in (1, 2, 3):
         k3_case(d, 3, 64)
+    # around the tail length (one block per claim) and the main path's
+    # short claims
+    for d in (1, 2, 3):
+        for n in (K3.tail_len(d), 2 * K3.tail_len(d)):
+            k3_case(d, 1, n)
+    for d in (2, 3):
+        k3_case(d, 1, 1024)
     fs, sts = k3_case(2, 1, R * C)
-    m = (R * C).bit_length() - 1
-    perms_per_round = -(-4 * 3 // 8) + 1
-    k3_ops = (R * C - 1) * (3 * 1 + 2) * F4_MULS + m * perms_per_round * PERM_MULS
-    k3_words = 2 * R * C * 4 + 16 + m * 3 * 4 + m * 4 + 2 * 4 + 16
-    k3_bytes = k3_words * WORD_BYTES
     rec["sumcheck_round"] = dict(
         ms=gpu_ms(lambda: K3.prove_rounds(fs, sts)),
         plain_ms=gpu_ms(lambda: K3.prove_rounds_plain(fs, sts), 1),
-        bound=bound_ms(k3_bytes, k3_ops),
+        bound=k3_bound(2, R * C),
         shape=f"prove_rounds d=2 K=1 n={R * C} (weight-commitment opening)")
 
     # K4: the opening row u = eq^T . mat of both commitments, plus a tall
@@ -285,6 +307,65 @@ def check_kernels(dev, shapes, gen):
     for name, r in rec.items():
         r["max_abs_err"] = errs[name]
     return rec
+
+
+def k3_bound(d: int, n: int):
+    """Bound of one prove_rounds call (K = 1): read d n Fp4 factor words and
+    the state, write g, c, the finals and the state; n - 1 pairs over all
+    rounds, each with (d + 1)(d - 1) + d Fp4 products, and the sponge's
+    permutations."""
+    m = n.bit_length() - 1
+    perms = m * (-(-4 * (d + 1) // 8) + 1) + -(-4 * d // 8)
+    words = d * n * 4 + 16 + m * (d + 1) * 4 + m * 4 + d * 4 + 16
+    ops = (n - 1) * ((d + 1) * (d - 1) + d) * F4_MULS + perms * PERM_MULS
+    return bound_ms(words * WORD_BYTES, ops)
+
+
+def time_k1k3(dev, gen):
+    """K1 and K3 at the main path's dominant shapes: CUDA-event ms per call,
+    device ms per call (torch.profiler), launches per call, bound.  Uses only
+    the wrappers' public signatures, so it times an older checkout's
+    kernels too when that checkout's ``src`` is first on ``sys.path``."""
+    from repro_torch.kernels import poseidon2_kernel as K1
+    from repro_torch.kernels import sumcheck_round as K3
+    st1 = rand_words(gen, (1, 16), dev)
+    e4096 = rand_words(gen, (1, 4096), dev)
+    e4 = rand_words(gen, (1, 4), dev)
+    leaves = rand_words(gen, (4096, 512), dev)
+    cases = [
+        ("K1 sponge 1x4096 (one-row transcript absorb)", 20,
+         lambda: K1.sponge(st1, e4096, 4096), 512,
+         bound_ms((16 + 4096 + 16) * WORD_BYTES, 512 * PERM_MULS)),
+        ("K1 sponge 1x4 (one-row transcript absorb)", 200,
+         lambda: K1.sponge(st1, e4, 4), 1,
+         bound_ms((16 + 4 + 16) * WORD_BYTES, PERM_MULS)),
+        ("K1 hash_rows 4096x512 (weight-commitment leaves)", 20,
+         lambda: K1.hash_rows(leaves), 64,
+         bound_ms((4096 * 512 + 4096 * 8) * WORD_BYTES, 4096 * 64 * PERM_MULS)),
+    ]
+    for d, n, iters in ((2, 1024, 50), (3, 1024, 50), (2, 1 << 19, 20)):
+        fs = [rand_words(gen, (1, n, 4), dev) for _ in range(d)]
+        st = rand_words(gen, (1, 16), dev)
+        cases.append((f"K3 prove_rounds d={d} K=1 n={n}", iters,
+                      (lambda fs=fs, st=st: K3.prove_rounds(fs, st)), None,
+                      k3_bound(d, n)))
+    out = []
+    for name, iters, fn, perms, (bnd, by) in cases:
+        fn()
+        before = (K1.launches, K3.launches)
+        fn()
+        launches = dict(K1=K1.launches - before[0], K3=K3.launches - before[1])
+        ms = gpu_ms(fn, iters)
+        _, prof = profiled_call(lambda: [fn() for _ in range(iters)])
+        dev_ms = prof["device_busy_ms"] / iters if prof["device_busy_ms"] else None
+        r = dict(shape=name, ms=ms, device_ms=dev_ms, launches=launches,
+                 bound_ms=bnd, bound_by=by)
+        if perms:
+            r["serial_perms"] = perms
+            r["us_per_serial_perm"] = ms * 1e3 / perms
+            r["device_us_per_serial_perm"] = dev_ms * 1e3 / perms if dev_ms else None
+        out.append(r)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +620,11 @@ def main() -> int:
           "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"],
                          kernels_device_ms=v.get("device_ms"))
                  for k, v in recs.items()}})
+
+    t0 = time.monotonic()
+    k1k3 = time_k1k3(dev, np.random.default_rng(SEED + 1))
+    emit({"phase": "k1k3", "ok": True, "seconds": time.monotonic() - t0,
+          "times": k1k3})
 
     golden = golden_phase(dev)
     emit({"phase": "golden", "ok": True, **golden})

@@ -14,25 +14,46 @@ constexpr uint32_t P = 2013265921u;
 constexpr uint32_t NEG_P_INV = 2013265919u;   // -P^-1 mod 2^32
 constexpr uint32_t R_MOD_P = 268435454u;      // 2^32 mod P  (Montgomery one)
 
+// Conditional subtractions as unsigned minimums: for x < 2P, x - P wraps
+// above x exactly when x < P, so min(x, x - P) is x mod P (one VIADDMNMX).
+__device__ __forceinline__ uint32_t reduce2p(uint32_t x) { return min(x, x - P); }
+
+// A value the compiler may not fold into its consumers (an empty move).
+// Lane masks go through it: from a visible lane test the compiler would
+// split code into divergent copies.
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(v));
+  return r;
+}
+
 // REDC of t < P * 2^32: returns t * 2^-32 mod P.
 __device__ __forceinline__ uint32_t redc(uint64_t t) {
   uint32_t m = static_cast<uint32_t>(t) * NEG_P_INV;
   // t + m P < P 2^32 + 2^32 P < 2^64; the low word cancels exactly
   uint32_t u = static_cast<uint32_t>((t + static_cast<uint64_t>(m) * P) >> 32);
-  return u >= P ? u - P : u;
+  return reduce2p(u);
 }
 
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   return redc(static_cast<uint64_t>(a) * b);   // a b < P^2 < P 2^32
 }
 
+// mul(a, b) for a b whose bn = b (-P^-1) mod 2^32 is known ahead: the
+// REDC factor m = a bn no longer waits for the product a b.
+__device__ __forceinline__ uint32_t mul_pre(uint32_t a, uint32_t b, uint32_t bn) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;
+  const uint32_t m = a * bn;
+  return reduce2p(static_cast<uint32_t>((t + static_cast<uint64_t>(m) * P) >> 32));
+}
+
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;                          // < 2P < 2^32
-  return s >= P ? s - P : s;
+  return reduce2p(a + b);                      // a + b < 2P < 2^32
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
+  const uint32_t d = a - b;                    // wraps iff a < b
+  return min(d, d + P);
 }
 
 // Fp4 = Fp[x] / (x^4 - 11); W4M is 11 in Montgomery form.

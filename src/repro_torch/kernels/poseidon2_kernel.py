@@ -7,13 +7,18 @@ permutation:
 * ``permute_batch`` — permute n states;
 * ``sponge`` — length-tagged sponge absorption of n rows, optionally from
   given states and over several segments back to back (Merkle leaf hashing
-  with ``hash_rows``; the transcript's absorb; the sum-check epilogue);
+  with ``hash_rows``; the transcript's absorb; the final absorb of K3's
+  plain version);
 * ``squeeze`` — permute-and-emit the rate lanes, ``nblocks`` times;
 * ``compress_pairs`` — 2-to-1 compression with feedforward.
 
 On a CUDA tensor each wrapper launches the kernel; on a CPU tensor it runs
 the ``*_plain`` version below, which follows the same schedule in int64.
 ``launches`` counts kernel launches.
+
+On the card a state is held by 16 lanes (half a warp), one word each, and
+a block of ``THREADS`` = 128 holds 8 rows: ``blocks(n)`` is the grid for n
+rows.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from repro_torch.core import poseidon2 as P2
 from . import _build
 
 launches = 0
+LANES = P2.WIDTH      # lanes per state on the card
+THREADS = 128         # threads per block: 8 states
 
 _R_INV6 = pow(F.R_INV, 6, F.P)
 _CONSTS: dict = {}
@@ -125,11 +132,12 @@ def _lib(device) -> ctypes.CDLL:
     if key not in _READY:
         vp, lg = ctypes.c_void_p, ctypes.c_long
         lib.p2_set_constants.argtypes = [vp, vp, vp]
-        lib.p2_permute.argtypes = [vp, vp, lg, vp]
-        lib.p2_sponge.argtypes = [vp, vp, lg, lg, ctypes.c_uint32, vp,
-                                  ctypes.c_int, lg, vp]
-        lib.p2_squeeze.argtypes = [vp, vp, vp, ctypes.c_int, lg, vp]
-        lib.p2_compress.argtypes = [vp, vp, vp, lg, vp]
+        ci = ctypes.c_int
+        lib.p2_permute.argtypes = [vp, vp, lg, ci, vp]
+        lib.p2_sponge.argtypes = [vp, vp, lg, lg, ctypes.c_uint32, vp, ci,
+                                  lg, ci, vp]
+        lib.p2_squeeze.argtypes = [vp, vp, vp, ci, lg, ci, vp]
+        lib.p2_compress.argtypes = [vp, vp, vp, lg, ci, vp]
         for fn in (lib.p2_set_constants, lib.p2_permute, lib.p2_sponge,
                    lib.p2_squeeze, lib.p2_compress):
             fn.restype = ctypes.c_int
@@ -151,6 +159,11 @@ def upload_constants(set_constants, device) -> None:
             diag.ctypes.data_as(ctypes.c_void_p)), "p2_set_constants")
 
 
+def blocks(n: int) -> int:
+    """Grid of a launch over n rows (16 lanes each, 8 rows a block)."""
+    return -(-n * LANES // THREADS)
+
+
 def _count() -> None:
     global launches
     launches += 1
@@ -166,8 +179,9 @@ def permute_batch(states: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(states)
     lib = _lib(states.device)
     _count()
-    _build.check(lib.p2_permute(_build.ptr(states), _build.ptr(out),
-                                states.shape[0], _build.stream_ptr(states)),
+    n = states.shape[0]
+    _build.check(lib.p2_permute(_build.ptr(states), _build.ptr(out), n,
+                                blocks(n), _build.stream_ptr(states)),
                  "p2_permute")
     return out
 
@@ -194,7 +208,7 @@ def sponge(init: Optional[torch.Tensor], elems: torch.Tensor, seg_len: int,
     _build.check(lib.p2_sponge(
         None if init is None else _build.ptr(init), _build.ptr(elems),
         seg_len, nseg, F.mont_int(seg_len), _build.ptr(out), out_width, n,
-        _build.stream_ptr(elems)), "p2_sponge")
+        blocks(n), _build.stream_ptr(elems)), "p2_sponge")
     return out
 
 
@@ -213,7 +227,7 @@ def squeeze(states: torch.Tensor, nblocks: int
     lib = _lib(states.device)
     _count()
     _build.check(lib.p2_squeeze(_build.ptr(states), _build.ptr(st),
-                                _build.ptr(lanes), nblocks, n,
+                                _build.ptr(lanes), nblocks, n, blocks(n),
                                 _build.stream_ptr(states)), "p2_squeeze")
     return st, lanes
 
@@ -230,7 +244,8 @@ def compress_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     lib = _lib(left.device)
     _count()
     _build.check(lib.p2_compress(_build.ptr(left), _build.ptr(right),
-                                 _build.ptr(out), n, _build.stream_ptr(left)),
+                                 _build.ptr(out), n, blocks(n),
+                                 _build.stream_ptr(left)),
                  "p2_compress")
     return out
 

@@ -56,6 +56,39 @@ def test_k1_poseidon2(dev):
                  K1.sponge_plain(s[:2], v, 4, 9))
 
 
+def test_k1_single_row_sponges(dev):
+    """The transcript's absorbs: one row from a given state, 16 lanes on one
+    state and the other half-warp idle; a chain of up to 512 permutations."""
+    from repro_torch.kernels import poseidon2_kernel as K1
+    st = _words(5, (1, 16), dev)
+    for L in (1, 4, 8, 9, 3243, 4096):
+        e = _words(10 + L, (1, L), dev)
+        assert _same(K1.sponge(st, e, L), K1.sponge_plain(st, e, L))
+        assert _same(K1.sponge(None, e, L, 1, 8), K1.sponge_plain(None, e, L, 1, 8))
+    # Transcript.absorb_each: k rows of w words as k tagged segments
+    for k, w in ((3, 4), (21, 4), (5, 9), (2, 16)):
+        e = _words(100 + k * w, (1, k * w), dev)
+        assert _same(K1.sponge(st, e, w, k), K1.sponge_plain(st, e, w, k))
+
+
+def test_k1_partial_warps(dev):
+    """Row counts that leave warps partly full (two rows per warp, eight per
+    block): the lanes past the last row still shuffle and store nothing."""
+    from repro_torch.kernels import poseidon2_kernel as K1
+    for n in (1, 3, 17, 33):
+        e = _words(n, (n, 24), dev)
+        assert _same(K1.hash_rows(e), K1.sponge_plain(None, e, 24, 1, 8))
+        s = _words(50 + n, (n, 16), dev)
+        assert _same(K1.permute_batch(s), K1.permute_plain(s))
+    s = _words(6, (3, 16), dev)
+    for nblocks in range(1, 10):
+        for a, b in zip(K1.squeeze(s, nblocks), K1.squeeze_plain(s, nblocks)):
+            assert _same(a, b)
+    for n in (1, 7, 33):
+        l, r = _words(60 + n, (n, 8), dev), _words(70 + n, (n, 8), dev)
+        assert _same(K1.compress_pairs(l, r), K1.compress_plain(l, r))
+
+
 def test_k2_ntt(dev):
     from repro_torch.kernels import ntt_kernel as K2
     for lg in range(1, 13):
@@ -75,6 +108,56 @@ def test_k3_sumcheck_rounds(dev):
                 for a, b in zip(K3.prove_rounds(fs, st),
                                 K3.prove_rounds_plain(fs, st)):
                     assert _same(a, b)
+
+
+def test_k3_tail_and_head_boundaries(dev):
+    """n around the tail length (one block per claim, all rounds in shared
+    memory) and above it (head rounds, ping-pong buffers): all four outputs,
+    and the launches the plan predicts."""
+    from repro_torch.kernels import sumcheck_round as K3
+    for d in (1, 2, 3):
+        nt = K3.tail_len(d)
+        for K in (1, 3):
+            for n in (2, nt // 2, nt, 2 * nt, 1 << 17):
+                fs = [_words(1000 * d + 10 * K + n.bit_length() + t, (K, n, 4), dev)
+                      for t in range(d)]
+                st = _words(3 * n.bit_length() + d, (K, 16), dev)
+                before = K3.launches
+                got = K3.prove_rounds(fs, st)
+                assert K3.launches - before == K3.plan(d, n, K).launches
+                for a, b in zip(got, K3.prove_rounds_plain(fs, st)):
+                    assert _same(a, b), (d, K, n)
+
+
+def test_k3_threads_with_different_shared_memory(dev):
+    """Two threads prove claims whose tail blocks ask for the most and far
+    less dynamic shared memory (d = 3 at n_tail, d = 1 at n = 256), as a
+    ProofService with thread workers does: every launch succeeds and every
+    result equals the plain version."""
+    import threading
+    from repro_torch.kernels import sumcheck_round as K3
+    inputs = {}
+    for d, n in ((3, K3.tail_len(3)), (1, 256)):
+        fs = [_words(50 * d + t, (1, n, 4), dev) for t in range(d)]
+        st = _words(d, (1, 16), dev)
+        inputs[d] = (fs, st, K3.prove_rounds_plain(fs, st))
+    errors = []
+
+    def run(d):
+        fs, st, want = inputs[d]
+        try:
+            for i in range(50):
+                if not all(_same(a, b) for a, b in zip(K3.prove_rounds(fs, st), want)):
+                    errors.append((d, i, "differs"))
+        except RuntimeError as e:
+            errors.append((d, str(e)))
+
+    threads = [threading.Thread(target=run, args=(d,)) for d in inputs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:4]
 
 
 def test_k4_modmatmul(dev):

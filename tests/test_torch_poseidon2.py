@@ -131,3 +131,38 @@ def test_transcript_absorb_each_matches_loop():
     for v in vals:
         b.absorb(v)
     assert np.array_equal(F.to_np(a.state), F.to_np(b.state))
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (8, 1), (9, 2), (17, 3), (33, 5),
+                                      (4096, 512)])
+def test_k1_launch_geometry(n, blocks):
+    """16 lanes per state and 8 states per block of 128 threads: the Merkle
+    leaf hashing of a 4096-column commitment runs 65,536 threads (512
+    blocks, enough for the H100's 132 SMs), and a last block may hold rows
+    past n, which compute on a zero state and store nothing."""
+    assert K1.blocks(n) == blocks
+    assert K1.blocks(n) * K1.THREADS >= n * K1.LANES > (K1.blocks(n) - 1) * K1.THREADS
+
+
+@pytest.mark.parametrize("seg_len,nseg,perms", [(0, 1, 0), (1, 1, 1), (4, 1, 1),
+                                                (8, 1, 1), (9, 1, 2), (3243, 1, 406),
+                                                (4096, 1, 512), (4, 21, 21), (12, 3, 6)])
+def test_k1_sponge_chain_length(seg_len, nseg, perms):
+    """Permutations one sponge row runs in sequence: ceil(L / 8) per tagged
+    segment — the serial chain a one-row transcript absorb pays."""
+    assert nseg * -(-seg_len // 8) == perms
+    if seg_len * nseg > 100:        # the plain sponge counts the short ones
+        return
+    e = _t(_words(seg_len + nseg, (1, seg_len * nseg)))
+    calls = []
+    orig = K1.permute_plain
+
+    def counting(s):
+        calls.append(1)
+        return orig(s)
+    K1.permute_plain = counting
+    try:
+        K1.sponge_plain(None, e, seg_len, nseg)
+    finally:
+        K1.permute_plain = orig
+    assert len(calls) == perms
