@@ -11,15 +11,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all
              at once.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the d=128 attestation path (K5: the largest
-             sum-check claim of that path, and a sweep of small ones), with
-             the edge words 0, 1, P-1, P-2; results must be equal element
-             for element.  Times kernel and plain version with CUDA events.
+             the shapes of the d=128 attestation path (K2's RS encode and
+             K4 at every shape one attest and the setup launch; K5: the
+             largest sum-check claim of that path, and a sweep of small
+             ones), with the edge words 0, 1, P-1, P-2; results must be
+             equal element for element.  Times kernel and plain version
+             with CUDA events (K2, K4, K5 also by torch.profiler).
    k1k3    — K1 and K3 at the main path's dominant shapes (a one-row
              4096-word and 4-word sponge, hash_rows 4096x512, K3 at d = 2
              and 3 for n = 1024 and d = 2 for n = 2^19): CUDA-event and
              profiler device ms per call, launches per call, bound, and for
              K1 the microseconds per permutation of the serial chain.
+   k2k4    — K2's RS encode (pcs._rs_encode) and K4 at the shapes one
+             attest launches (the helper's, the aux witness's; the weight
+             shape K4 opens every attest and K2 encodes at setup), K2's
+             plain transform and an encode at blowup 8: profiler device ms
+             per call (the kernel's own apart from the rest, e.g. an older
+             checkout's pad), CUDA-event ms over >= 20 calls, host us per
+             call, launches per call, bound, int64-byte floor.
 4. golden  — attests the repository's 1-layer golden model on the card;
              the v1/v2 bytes must equal tests/data/golden_v{1,2}.bin, the
              port's verifier must accept both and reject a flipped byte.
@@ -28,7 +37,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              is verified against the ModelCard bytes.  The kernels' launch
              counters are zeroed just before and read just after: K1-K4
              must have launched.  The last attest runs under
-             torch.profiler, for the device's busy share.
+             torch.profiler, for the device's busy share and K2/K4's device
+             ms; its K2 and K4 calls are counted by shape and must be the
+             shapes k2k4 times (ATTEST_K2, ATTEST_K4).
 6. analysis — the soundness analysis in-process on the card
              (``python -m repro_torch.analysis --all --mutants``): zero
              findings, every kernel equal to its plain version on edge
@@ -82,6 +93,19 @@ F4_MULS = 16
 # Bytes of one field word in the bounds: the functions work on u32 words
 # (the port stores them in int64 tensors, which moves twice as many bytes).
 WORD_BYTES = 4
+INT64_BYTES = 8
+
+# The K2 and K4 calls of one attest of the served chain, as the serve
+# phase's histogram reports them: K2 by (rows, n, c), an RS encode of
+# rows x c message words into rows x n; K4 by (M, K, N).  K2: the LogUp
+# helper (2^20 words), the aux witness, the boundary batch; K4: the opening
+# rows of the helper, weight, aux and short commitments.  SETUP_*: the calls
+# made once per service (weight commitment, its range proof's helper).
+ATTEST_K2 = {(1024, 4096, 1024): 4, (256, 2048, 512): 4, (160, 256, 64): 1}
+ATTEST_K4 = {(4, 1024, 1024): 4, (4, 512, 1024): 4, (4, 256, 512): 4,
+             (4, 32, 64): 8}
+SETUP_K2 = {(512, 4096, 1024): 4, (1024, 8192, 2048): 4}
+SETUP_K4 = {(4, 1024, 2048): 4}
 
 
 def emit(obj) -> None:
@@ -215,24 +239,39 @@ def check_kernels(dev, shapes, gen):
         bound=bound_ms(k1_bytes, k1_ops),
         shape=f"hash_rows {nw}x{R} (weight-commitment leaves)")
 
-    # K2: RS encoding rows of the weight and aux commitments, both
-    # directions, plus short rows that pack several to a block.
+    # K2: the RS encode entry at every shape an attest and the setup give
+    # it (unpadded message rows in, codewords out); c = 1 and 2, rows that
+    # leave a block part full, blowups 1..8; the plain transform both ways
+    # at the weight codeword length and on short rows packed to a block.
+    for (r, n, c) in list(ATTEST_K2) + list(SETUP_K2):
+        msg = rand_words(gen, (r, c), dev)
+        check(f"K2 rs_encode {r}x{c} -> {r}x{n}", K2.rs_encode_rows(msg, n // c),
+              K2.rs_encode_rows_plain(msg, n // c))
+    for c in (1, 2, 64, 512):
+        for blowup in (1, 2, 4, 8):
+            if c * blowup > 1:
+                msg = rand_words(gen, (37, c), dev)
+                check(f"K2 rs_encode 37x{c} blowup={blowup}",
+                      K2.rs_encode_rows(msg, blowup),
+                      K2.rs_encode_rows_plain(msg, blowup))
     rows = rand_words(gen, (R, nw), dev)
     for inv in (False, True):
         check(f"K2 ntt inverse={inv}", K2.ntt_rows(rows, inv),
               K2.ntt_rows_plain(rows, inv))
-    arows = rand_words(gen, (1 << ar, (1 << ac) * PCS_BLOWUP), dev)
-    check("K2 ntt aux", K2.ntt_rows(arows), K2.ntt_rows_plain(arows))
-    for n in (2, 4, 8, 64, 256):
+    for n in (2, 4, 8, 16, 64, 256, 2048, 16384, 32768):
         small = rand_words(gen, (9, n), dev)
-        check(f"K2 ntt n={n}", K2.ntt_rows(small), K2.ntt_rows_plain(small))
-    n_lg = nw.bit_length() - 1
+        for inv in (False, True):
+            check(f"K2 ntt n={n} inverse={inv}", K2.ntt_rows(small, inv),
+                  K2.ntt_rows_plain(small, inv))
+    (hr, hn, hc) = max(ATTEST_K2, key=lambda k: k[0] * k[1])
+    hmsg = rand_words(gen, (hr, hc), dev)
+    _, prof = profiled_call(lambda: [K2.rs_encode_rows(hmsg, hn // hc) for _ in range(20)])
     rec["ntt"] = dict(
-        ms=gpu_ms(lambda: K2.ntt_rows(rows)),
-        plain_ms=gpu_ms(lambda: K2.ntt_rows_plain(rows), 1),
-        bound=bound_ms((2 * rows.numel() + nw // 2) * WORD_BYTES,
-                       R * (nw // 2) * n_lg),
-        shape=f"ntt_rows {R}x{nw} (weight-commitment encoding)")
+        ms=gpu_ms(lambda: K2.rs_encode_rows(hmsg, hn // hc), 20),
+        device_ms=prof["device_busy_ms"] / 20 if prof["device_busy_ms"] else None,
+        plain_ms=gpu_ms(lambda: K2.rs_encode_rows_plain(hmsg, hn // hc), 1),
+        bound=k2_bound(hr, hn, hc),
+        shape=f"rs_encode_rows {hr}x{hc} -> {hr}x{hn} (the LogUp helper, 4 per attest)")
 
     # K3: d = 1, 2, 3 at the aux commitment's length; the weight opening
     # (d = 2 over R*C) for timing; K = 3 claims at once.
@@ -262,19 +301,25 @@ def check_kernels(dev, shapes, gen):
         bound=k3_bound(2, R * C),
         shape=f"prove_rounds d=2 K=1 n={R * C} (weight-commitment opening)")
 
-    # K4: the opening row u = eq^T . mat of both commitments, plus a tall
-    # M and an odd K for the ragged paths.
+    # K4: the opening rows u = eq^T . mat at every shape an attest and the
+    # setup give it; M = 1, 5, 11 (two blocks of A rows), 64; odd K, K below
+    # a warp of pairs, long K at narrow N, ragged and odd N.
+    mm = list(ATTEST_K4) + list(SETUP_K4) + [
+        (1, 512, 1024), (5, 33, 70), (11, 33, 70), (4, 1, 3), (4, 7, 9),
+        (4, 2048, 64), (4, 1024, 40), (3, 1025, 38), (4, 1026, 36),
+        (4, 1026, 1024), (64, 256, 4)]
+    for (M, K, N) in mm:
+        a, b = rand_words(gen, (M, K), dev), rand_words(gen, (K, N), dev)
+        check(f"K4 modmatmul {M}x{K} @ {K}x{N}", K4.modmatmul(a, b),
+              K4.modmatmul_plain(a, b))
     a = rand_words(gen, (4, R), dev)
     b = rand_words(gen, (R, C), dev)
-    check("K4 modmatmul wt", K4.modmatmul(a, b), K4.modmatmul_plain(a, b))
-    a2, b2 = rand_words(gen, (4, 1 << ar), dev), rand_words(gen, (1 << ar, 1 << ac), dev)
-    check("K4 modmatmul aux", K4.modmatmul(a2, b2), K4.modmatmul_plain(a2, b2))
-    a3, b3 = rand_words(gen, (11, 33), dev), rand_words(gen, (33, 70), dev)
-    check("K4 modmatmul 11x33x70", K4.modmatmul(a3, b3), K4.modmatmul_plain(a3, b3))
+    _, prof = profiled_call(lambda: [K4.modmatmul(a, b) for _ in range(50)])
     rec["modmatmul"] = dict(
-        ms=gpu_ms(lambda: K4.modmatmul(a, b)),
+        ms=gpu_ms(lambda: K4.modmatmul(a, b), 50),
+        device_ms=prof["device_busy_ms"] / 50 if prof["device_busy_ms"] else None,
         plain_ms=gpu_ms(lambda: K4.modmatmul_plain(a, b), 1),
-        bound=bound_ms((4 * R + R * C + 4 * C) * WORD_BYTES, 4 * R * C),
+        bound=k4_bound(4, R, C),
         shape=f"modmatmul 4x{R} @ {R}x{C} (weight-commitment opening row)")
 
     # K5: one round with a known challenge at the largest sum-check claim
@@ -319,6 +364,90 @@ def k3_bound(d: int, n: int):
     words = d * n * 4 + 16 + m * (d + 1) * 4 + m * 4 + d * 4 + 16
     ops = (n - 1) * ((d + 1) * (d - 1) + d) * F4_MULS + perms * PERM_MULS
     return bound_ms(words * WORD_BYTES, ops)
+
+
+def k2_bound(rows: int, n: int, c: int, word_bytes: int = WORD_BYTES):
+    """RS encode of rows x c into rows x n (c = n is the plain transform):
+    read the message and the n-word twiddle table, write the codewords;
+    rows (n / 2) log2 c butterflies, one modular product each."""
+    stages = c.bit_length() - 1
+    return bound_ms((rows * c + n + rows * n) * word_bytes,
+                    rows * (n // 2) * stages)
+
+
+def k4_bound(M: int, K: int, N: int, word_bytes: int = WORD_BYTES):
+    return bound_ms((M * K + K * N + M * N) * word_bytes, M * K * N)
+
+
+def time_k2k4(dev, gen):
+    """K2's RS encode and K4 at the shapes one attest launches them (and
+    the weight shape of the setup), K2's plain transform at the weight
+    codeword length, and an encode at blowup 8 (an instance that reads its
+    shape at run time): device ms per call (torch.profiler, the
+    K2/K4 kernels apart from every other kernel of the call, e.g. a pad),
+    CUDA-event ms per call over >= 20 calls, the wrapper's host microseconds
+    per call, launches per call, the bound (u32 words) and the int64-byte
+    floor.  The profiler may drop kernel events, so the kernel's device ms
+    is its mean over the launches seen, times the launches per call, and
+    the share seen is reported.  Uses only ``pcs._rs_encode(rows, blowup)``,
+    ``K2.ntt_rows(x)`` and ``K4.modmatmul(a, b)``, so it times an older
+    checkout's kernels too when that checkout's ``src`` is first on
+    ``sys.path``."""
+    import torch
+    from repro_torch.core import pcs as PCS
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
+    cases = []
+    for (r, n, c), what in (((1024, 4096, 1024), "LogUp helper, attest"),
+                            ((256, 2048, 512), "aux witness, attest"),
+                            ((512, 4096, 1024), "weights, setup")):
+        msg = rand_words(gen, (r, c), dev)
+        cases.append((f"K2 encode {r}x{c} -> {r}x{n} ({what})", K2, "ntt_kernel",
+                      (lambda msg=msg, b=n // c: PCS._rs_encode(msg, b)), 20,
+                      k2_bound(r, n, c), k2_bound(r, n, c, INT64_BYTES)[0]))
+    x = rand_words(gen, (512, 4096), dev)
+    cases.append(("K2 ntt_rows 512x4096 (plain transform)", K2, "ntt_kernel",
+                  lambda: K2.ntt_rows(x), 20, k2_bound(512, 4096, 4096),
+                  k2_bound(512, 4096, 4096, INT64_BYTES)[0]))
+    msg8 = rand_words(gen, (1024, 512), dev)
+    cases.append(("K2 encode 1024x512 -> 1024x4096 (blowup 8)", K2, "ntt_kernel",
+                  lambda: PCS._rs_encode(msg8, 8), 20, k2_bound(1024, 4096, 512),
+                  k2_bound(1024, 4096, 512, INT64_BYTES)[0]))
+    for (M, K, N), what in (((4, 512, 1024), "weights, attest"),
+                            ((4, 1024, 1024), "LogUp helper, attest"),
+                            ((4, 256, 512), "aux witness, attest")):
+        a, b = rand_words(gen, (M, K), dev), rand_words(gen, (K, N), dev)
+        cases.append((f"K4 {M}x{K} @ {K}x{N} ({what})", K4, "modmatmul",
+                      (lambda a=a, b=b: K4.modmatmul(a, b)), 50,
+                      k4_bound(M, K, N), k4_bound(M, K, N, INT64_BYTES)[0]))
+    out = []
+    for name, mod, kname, fn, iters, (bnd, by), floor64 in cases:
+        fn()
+        torch.cuda.synchronize()
+        before = mod.launches
+        fn()
+        launches = mod.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        ms = gpu_ms(fn, iters)
+        _, prof = profiled_call(lambda: [fn() for _ in range(iters)],
+                                match=(kname,))
+        busy = prof["device_busy_ms"]
+        kern, seen = prof["match"][kname]
+        out.append(dict(
+            shape=name, ms=ms, device_ms=busy / iters if busy else None,
+            kernel_device_ms=kern / seen * launches if seen else None,
+            kernel_events_seen=seen / (iters * launches),
+            other_device_ms=(busy - kern) / iters if busy else None,
+            host_us=host_us, launches=launches, bound_ms=bnd, bound_by=by,
+            int64_floor_ms=floor64,
+            kernels=[dict(name=t["name"], ms=t["ms"] / iters, count=t["count"] / iters)
+                     for t in prof["top"][:4]]))
+    return out
 
 
 def time_k1k3(dev, gen):
@@ -437,8 +566,12 @@ def serve_query(q: int):
 
 def serve_phase(dev):
     """The last request's attest runs under torch.profiler (its time then
-    includes the profiler's cost; it is flagged ``profiled``)."""
+    includes the profiler's cost; it is flagged ``profiled``); its K2 and K4
+    calls are counted by shape, and its K2/K4 kernels' device ms read from
+    the trace."""
     from repro_torch import api
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
     policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
     out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, pcs_blowup=PCS_BLOWUP,
                pcs_queries=PCS_QUERIES, requests=[])
@@ -452,7 +585,14 @@ def serve_phase(dev):
             before = launch_counts()
             t0 = time.monotonic()
             if profiled:
-                att, out["profile"] = profiled_call(svc.attest, x, policy)
+                K2.launch_shapes.clear()
+                K4.launch_shapes.clear()
+                att, out["profile"] = profiled_call(
+                    svc.attest, x, policy,
+                    match=("ntt_kernel", "modmatmul_kernel"))
+                out["attest_shapes"] = dict(
+                    K2=sorted([*k, v] for k, v in K2.launch_shapes.items()),
+                    K4=sorted([*k, v] for k, v in K4.launch_shapes.items()))
             else:
                 att = svc.attest(x, policy)
             wire = att.to_bytes(2)
@@ -469,6 +609,11 @@ def serve_phase(dev):
                 verify_seconds=rep.verify_seconds, wire_bytes=len(wire),
                 checked_layers=rep.checked_layers, profiled=profiled,
                 attest_launches={k: after[k] - before[k] for k in after}))
+    # the shapes time_k2k4 times must be the ones the attest launched
+    for k, want in (("K2", ATTEST_K2), ("K4", ATTEST_K4)):
+        got = {tuple(e[:3]): e[3] for e in out["attest_shapes"][k]}
+        if got != want:
+            fail("serve", f"{k} calls of one attest {got} != {want}")
     plain = sorted(r["seconds"] for r in out["requests"] if not r["profiled"])
     if plain and out["profile"]["device_busy_ms"] is not None:
         # device busy time of the traced attest over the median untraced one
@@ -518,10 +663,11 @@ def analysis_phase(dev):
     return out
 
 
-def profiled_call(fn, *args):
+def profiled_call(fn, *args, match=()):
     """Run fn under torch.profiler, tracing device activity only; report
     the device's busy time (the sum of kernel times) against the wall
-    time, and the top kernels."""
+    time, the top kernels, and for each substring in ``match`` the device
+    ms and count of the kernels whose names hold it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     t0 = time.monotonic()
@@ -543,6 +689,10 @@ def profiled_call(fn, *args):
                    busy_share=busy / (wall * 1e3) if rows else None,
                    top=[dict(name=k[:80], ms=ms, count=c)
                         for k, ms, c in rows[:12]])
+    if match:
+        summary["match"] = {
+            m: [sum(r[1] for r in rows if m in r[0]),
+                sum(r[2] for r in rows if m in r[0])] for m in match}
     return result, summary
 
 
@@ -625,6 +775,11 @@ def main() -> int:
     k1k3 = time_k1k3(dev, np.random.default_rng(SEED + 1))
     emit({"phase": "k1k3", "ok": True, "seconds": time.monotonic() - t0,
           "times": k1k3})
+
+    t0 = time.monotonic()
+    k2k4 = time_k2k4(dev, np.random.default_rng(SEED + 2))
+    emit({"phase": "k2k4", "ok": True, "seconds": time.monotonic() - t0,
+          "times": k2k4})
 
     golden = golden_phase(dev)
     emit({"phase": "golden", "ok": True, **golden})

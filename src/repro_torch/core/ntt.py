@@ -60,9 +60,15 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 def rs_encode(rows: torch.Tensor, blowup: int) -> torch.Tensor:
     """Reed-Solomon encode each row (trailing axis) at rate 1/blowup: the
     row is taken as polynomial coefficients (degree < c) and evaluated on
-    the size c*blowup subgroup."""
+    the size c*blowup subgroup.  The K2 encode entry reads the unpadded
+    rows (the JAX package pads, then transforms: the same words)."""
+    from repro_torch.kernels import ntt_kernel as K2
     c = rows.shape[-1]
     n = c * blowup
     assert n & (n - 1) == 0
-    padded = torch.nn.functional.pad(rows, (0, n - c))
-    return ntt(padded)
+    if n == 1:
+        return rows
+    flat = rows.reshape(-1, c)
+    if flat.device.type == "cuda":
+        flat = flat.contiguous()
+    return K2.rs_encode_rows(flat, blowup).reshape(*rows.shape[:-1], n)

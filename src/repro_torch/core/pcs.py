@@ -104,13 +104,13 @@ def shape_for(n_elems: int, aspect: int = 0) -> Tuple[int, int]:
 
 
 def _rs_encode(rows: torch.Tensor, blowup: int) -> torch.Tensor:
-    """RS-encode rows through the K2 NTT kernel."""
+    """RS-encode rows through the K2 encode entry, which reads the
+    unpadded rows (the JAX package pads them, then runs the NTT)."""
     c = rows.shape[-1]
     n = c * blowup
     if n == 1:
         return rows
-    padded = torch.nn.functional.pad(rows, (0, n - c))
-    out = K2.ntt_rows(padded.reshape(-1, n).contiguous())
+    out = K2.rs_encode_rows(rows.reshape(-1, c).contiguous(), blowup)
     return out.reshape(*rows.shape[:-1], n)
 
 

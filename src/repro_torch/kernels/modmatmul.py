@@ -5,10 +5,20 @@ Replaces ``repro.kernels.modmatmul.modmatmul`` and
 ``repro.kernels.ops.partial_eval_rows_mm``.  No library call computes a
 modular product (and CUDA has no int64 matmul), so the plain version forms
 the products and reduces the sum once.
+
+``plan(M, K, N)`` says how a call is launched: one kernel, blocks of 4
+output columns (one 32-byte sector of a B row) and at most 8 rows of A,
+each block over all of K.  Every thread issues the loads of several row
+pairs at once, so a block of a few hundred rows costs about one trip to
+memory.  At the main path's widths (N = 512 and 1024) that is 128 and 256
+blocks for the 132 SMs.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -18,7 +28,31 @@ from repro_torch.core.mle import eq_points
 from . import _build
 
 launches = 0
+# calls that reached the card, by (M, K, N)
+launch_shapes: collections.Counter = collections.Counter()
+COLS = 4                   # output columns per block (one 32-byte sector of a B row)
+SLOTS_PER_WARP = 16        # row pairs a warp loads per step
+MAX_WARPS = 8
 _READY: set = set()
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one (M, K) @ (K, N) call is launched."""
+    mt: int                # rows of A per block (1, 2, 4 or 8)
+    threads: int           # per block: a warp for every 16 row pairs, at most 8
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, K: int, N: int) -> Plan:
+    mt = 1
+    while mt < min(M, 8):
+        mt *= 2
+    pairs = max(1, -(-K // 2))
+    warps = min(MAX_WARPS, -(-pairs // SLOTS_PER_WARP))
+    return Plan(mt=mt, threads=32 * warps,
+                blocks=-(-N // COLS) * -(-M // mt))
 
 
 def modmatmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,10 +64,9 @@ def modmatmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("modmatmul")
     if id(lib) not in _READY:
-        vp = ctypes.c_void_p
-        lib.modmatmul.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_long,
-                                  ctypes.c_long, vp]
-        lib.modmatmul.restype = ctypes.c_int
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.modmatmul.argtypes = [vp, vp, vp, ci, cl, cl, ci, ci, vp]
+        lib.modmatmul.restype = ci
         _READY.add(id(lib))
     return lib
 
@@ -48,11 +81,16 @@ def modmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=F.I64, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    pl = plan(M, K, N)
+    status = _lib().modmatmul(
+        _build.ptr(a), _build.ptr(b), _build.ptr(out), M, K, N, pl.mt,
+        pl.threads, _build.stream_ptr(a))
+    _build.check(status, "modmatmul")
     global launches
     launches += 1
-    _build.check(_lib().modmatmul(_build.ptr(a), _build.ptr(b),
-                                  _build.ptr(out), M, K, N,
-                                  _build.stream_ptr(a)), "modmatmul")
+    launch_shapes[(M, K, N)] += 1
     return out
 
 

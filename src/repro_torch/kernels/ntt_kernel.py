@@ -1,16 +1,24 @@
-"""K2: batched radix-2 NTT along rows (CUDA, ``csrc/ntt.cu``) and its
-plain version.
+"""K2: batched radix-2 NTT along rows, and the Reed-Solomon encode of
+unpadded rows (CUDA, ``csrc/ntt.cu``), with their plain versions.
 
-Replaces ``repro.kernels.ntt_kernel.ntt_rows``.  The kernel bit-reverses
-each row as it loads it into shared memory and runs every butterfly stage
-there; the plain version runs the same stages on int64 tensors.  Rows of
-length n need 4n bytes of shared memory; rows longer than the card's
-dynamic shared-memory limit raise.
+Replaces ``repro.kernels.ntt_kernel.ntt_rows`` and, for the RS encode, the
+zero padding that ``repro.core.pcs`` and ``repro.core.ntt`` apply before
+it: ``rs_encode_rows(rows, blowup)`` equals ``ntt_rows`` of the rows padded
+with zeros to ``c * blowup`` words, but the kernel reads only the c message
+words (on a bit-reversed zero-padded row the first log2(blowup) stages
+only copy each word to ``blowup`` places).  Both entries run the one
+kernel: passes of up to four butterfly stages in registers, shared memory
+between passes.  On the card a row of n words takes 4 n bytes of shared
+memory for the plain transform and 4 (n + c) for an encode (its message is
+staged apart): n <= 32768 for both; longer rows raise.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import field as F
@@ -19,7 +27,10 @@ from repro_torch.core import ntt as NTT
 from . import _build
 
 launches = 0
+# calls that reached the card, by (rows, n, c): c < n for an RS encode
+launch_shapes: collections.Counter = collections.Counter()
 MAX_SHARED_BYTES = 232448     # dynamic shared memory of one sm_90 block
+BLOCK_WORDS = 4096            # output words per block: 16 a thread of 256
 _TW: dict = {}
 _READY: set = set()
 
@@ -29,6 +40,30 @@ def _twiddles(n: int, inverse: bool, device) -> torch.Tensor:
     t = _TW.get(key)
     if t is None:
         t = F.tensor(NTT._twiddles(n, inverse), device)
+        _TW[key] = t
+    return t
+
+
+def stage_table(n: int, inverse: bool) -> np.ndarray:
+    """The kernel's twiddles, stage-major, (n, 2) u32: row 2^s + j holds
+    w = w_{2^(s+1)}^j as a plain residue (not Montgomery: the kernel's
+    Shoup product x w mod P keeps a Montgomery x in Montgomery form) and
+    w' = floor(w 2^32 / P), for stage s < log2 n and j < 2^s; row 0 is
+    unused."""
+    tw = NTT._twiddles(n, inverse).astype(np.int64) * F.R_INV % F.P
+    W = np.zeros((n, 2), dtype=np.uint64)
+    for s in range(n.bit_length() - 1):
+        h = 1 << s
+        W[h:2 * h, 0] = tw[::n // (2 * h)][:h]
+    W[:, 1] = (W[:, 0] << np.uint64(32)) // np.uint64(F.P)
+    return W.astype(np.uint32)
+
+
+def _stage_table(n: int, inverse: bool, device) -> torch.Tensor:
+    key = ("stage", n, inverse, str(device))
+    t = _TW.get(key)
+    if t is None:
+        t = torch.as_tensor(stage_table(n, inverse).view(np.int32), device=device)
         _TW[key] = t
     return t
 
@@ -53,21 +88,64 @@ def ntt_rows_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return x
 
 
-def _lib() -> ctypes.CDLL:
+def rs_encode_rows_plain(rows: torch.Tensor, blowup: int) -> torch.Tensor:
+    """The JAX package's encode: pad each row to c * blowup, then NTT."""
+    c = rows.shape[1]
+    return ntt_rows_plain(torch.nn.functional.pad(rows, (0, c * blowup - c)))
+
+
+def _lib(device) -> ctypes.CDLL:
     lib = _build.load("ntt")
-    if id(lib) not in _READY:
+    key = (str(device), id(lib))
+    if key not in _READY:
         vp = ctypes.c_void_p
         lib.ntt_rows.argtypes = [vp, vp, vp, ctypes.c_long, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_uint32, vp]
         lib.ntt_rows.restype = ctypes.c_int
-        _READY.add(id(lib))
+        lib.ntt_set_max_smem.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            _build.check(lib.ntt_set_max_smem(), "ntt_set_max_smem")
+        _READY.add(key)
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _n_inv(n: int) -> int:
+    return F.mont_int(pow(n, F.P - 2, F.P))
+
+
 def rows_per_block(n: int) -> int:
-    """Pack short rows several to a block (at least 512 butterflies)."""
-    return max(1, 1024 // n)
+    """Pack short rows several to a block (BLOCK_WORDS output words)."""
+    return max(1, BLOCK_WORDS // n)
+
+
+def _launch(x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
+    """rows x c words in (c = n / 2^L), rows x n out, on the card."""
+    _build.require_cuda_int64(x)
+    rows, c = x.shape
+    log_n = n.bit_length() - 1
+    L = log_n - (c.bit_length() - 1)
+    rpb = rows_per_block(n)
+    if 4 * (n + (c if c < n else 0)) * rpb > MAX_SHARED_BYTES:
+        raise ValueError(f"NTT row of {n} words ({c} read) exceeds the "
+                         "shared-memory limit")
+    tw = _stage_table(n, inverse, x.device)
+    out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    status = _lib(x.device).ntt_rows(
+        _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, log_n, L, rpb,
+        int(inverse), _n_inv(n), _build.stream_ptr(x))
+    _build.check(status, "ntt_rows")
+    global launches
+    if rows:
+        launches += 1
+        launch_shapes[(rows, n, c)] += 1
+    return out
+
+
+def _pow2(v: int, what: str) -> None:
+    if v < 1 or v & (v - 1):
+        raise ValueError(f"{what} {v} is not a power of two")
 
 
 def ntt_rows(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -75,22 +153,27 @@ def ntt_rows(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     if x.ndim != 2:
         raise ValueError(f"ntt_rows wants (rows, n), got {tuple(x.shape)}")
     rows, n = x.shape
-    if n & (n - 1):
-        raise ValueError(f"NTT length {n} is not a power of two")
+    _pow2(n, "NTT length")
     if x.device.type == "cpu":
         return ntt_rows_plain(x, inverse)
     if n == 1:
         return x
-    _build.require_cuda_int64(x)
-    rpb = rows_per_block(n)
-    if 4 * n * rpb > MAX_SHARED_BYTES:
-        raise ValueError(f"NTT row of {n} words exceeds the shared-memory limit")
-    tw = _twiddles(n, inverse, x.device)
-    out = torch.empty_like(x)
-    global launches
-    launches += 1
-    _build.check(_lib().ntt_rows(
-        _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, n,
-        n.bit_length() - 1, rpb, int(inverse),
-        F.mont_int(pow(n, F.P - 2, F.P)), _build.stream_ptr(x)), "ntt_rows")
-    return out
+    return _launch(x, n, inverse)
+
+
+def rs_encode_rows(rows: torch.Tensor, blowup: int) -> torch.Tensor:
+    """rows: (r, c) Montgomery message rows, c a power of two -> (r, c *
+    blowup) Reed-Solomon codewords: each row taken as coefficients and
+    evaluated on the subgroup of order c * blowup.  Equals
+    ``ntt_rows(pad(rows))``."""
+    if rows.ndim != 2:
+        raise ValueError(f"rs_encode_rows wants (rows, c), got {tuple(rows.shape)}")
+    c = rows.shape[1]
+    _pow2(c, "message length")
+    _pow2(blowup, "blowup")
+    if rows.device.type == "cpu":
+        return rs_encode_rows_plain(rows, blowup)
+    n = c * blowup
+    if n == 1:
+        return rows
+    return _launch(rows, n, False)

@@ -97,6 +97,36 @@ def test_k2_ntt(dev):
             assert _same(K2.ntt_rows(x, inv), K2.ntt_rows_plain(x, inv))
 
 
+def test_k2_rs_encode(dev):
+    """The RS entry (unpadded rows in) against its plain version (pad, then
+    the transform): every shape an attest and the setup launch, c = 1 and
+    2, rows that leave a block part full, blowups 1, 2, 4, 8."""
+    from repro_torch.kernels import ntt_kernel as K2
+    cases = [(1024, 1024, 4), (256, 512, 4), (160, 64, 4), (512, 1024, 4),
+             (1024, 2048, 4)]
+    for c in (1, 2, 16, 512):
+        for blowup in (1, 2, 4, 8):
+            if c * blowup > 1:
+                rpb = K2.rows_per_block(c * blowup)
+                cases += [(1, c, blowup), (rpb + 1, c, blowup), (3 * rpb - 1, c, blowup)]
+    for rows, c, blowup in cases:
+        x = _words(rows * 7 + c + blowup, (rows, c), dev)
+        before = K2.launches
+        got = K2.rs_encode_rows(x, blowup)
+        assert K2.launches - before == 1
+        assert _same(got, K2.rs_encode_rows_plain(x, blowup)), (rows, c, blowup)
+    for lg in (13, 14, 15):      # 2^15: the longest rows the card takes
+        x = _words(lg, (3, 1 << lg), dev)
+        for inv in (False, True):
+            assert _same(K2.ntt_rows(x, inv), K2.ntt_rows_plain(x, inv))
+    for c, blowup in ((1 << 13, 4), (1 << 12, 8)):
+        x = _words(c + blowup, (2, c), dev)
+        assert _same(K2.rs_encode_rows(x, blowup), K2.rs_encode_rows_plain(x, blowup))
+    x = _words(16, (2, 1 << 16), dev)
+    with pytest.raises(ValueError):
+        K2.ntt_rows(x)
+
+
 def test_k3_sumcheck_rounds(dev):
     from repro_torch.kernels import sumcheck_round as K3
     for d in (1, 2, 3):
@@ -165,6 +195,59 @@ def test_k4_modmatmul(dev):
     for (M, K, N) in ((4, 512, 1024), (4, 1, 3), (11, 33, 70), (9, 2, 40)):
         a, b = _words(M, (M, K), dev), _words(N, (K, N), dev)
         assert _same(K4.modmatmul(a, b), K4.modmatmul_plain(a, b))
+
+
+def test_k4_plan_cases(dev):
+    """M = 1, 4, 5, 11, 64; odd K; K below a warp of pairs; long K at
+    narrow N; ragged and odd N; K = 0; one launch a call."""
+    from repro_torch.kernels import modmatmul as K4
+    shapes = [(M, K, N) for M in (1, 4, 5, 11) for K, N in
+              ((1, 3), (7, 9), (31, 64), (33, 70), (256, 512))]
+    shapes += [(4, 32, 64), (4, 1024, 1024), (4, 1024, 2048), (4, 1026, 1024),
+               (3, 1025, 38), (4, 2048, 64), (4, 1024, 40), (4, 1022, 40),
+               (64, 256, 4), (4, 0, 8)]
+    for M, K, N in shapes:
+        a, b = _words(M + K, (M, K), dev), _words(K + N, (K, N), dev)
+        before = K4.launches
+        got = K4.modmatmul(a, b)
+        assert K4.launches - before == 1
+        assert _same(got, K4.modmatmul_plain(a, b)), (M, K, N)
+
+
+def test_k2_k4_threads(dev):
+    """Two threads, one running K4 and one the RS entry, each at two shapes
+    with different plans (K4: narrow N with long K, and the weight shape;
+    K2: two row lengths and blowups), 50 calls each: every result equal to
+    the plain version."""
+    import threading
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
+    a1, b1 = _words(1, (4, 1024), dev), _words(2, (1024, 40), dev)
+    a2, b2 = _words(3, (4, 512), dev), _words(4, (512, 1024), dev)
+    x1, x2 = _words(5, (256, 512), dev), _words(6, (33, 64), dev)
+    jobs = {
+        "K4": [(lambda: K4.modmatmul(a1, b1), K4.modmatmul_plain(a1, b1)),
+               (lambda: K4.modmatmul(a2, b2), K4.modmatmul_plain(a2, b2))],
+        "K2": [(lambda: K2.rs_encode_rows(x1, 4), K2.rs_encode_rows_plain(x1, 4)),
+               (lambda: K2.rs_encode_rows(x2, 8), K2.rs_encode_rows_plain(x2, 8))],
+    }
+    errors = []
+
+    def run(name):
+        try:
+            for i in range(50):
+                fn, want = jobs[name][i % 2]
+                if not _same(fn(), want):
+                    errors.append((name, i, "differs"))
+        except RuntimeError as e:
+            errors.append((name, str(e)))
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:4]
 
 
 def test_k5_sumcheck_fold(dev):

@@ -1,5 +1,6 @@
-"""K2 (NTT) and K4 (modular matmul) plain versions, Merkle trees and PCS
-commitments of repro_torch against the JAX package, exact equality."""
+"""K2 (NTT, RS encode) and K4 (modular matmul) plain versions and launch
+plans, Merkle trees and PCS commitments of repro_torch against the JAX
+package, exact equality."""
 import numpy as np
 import pytest
 
@@ -118,3 +119,81 @@ def test_mle_helpers():
     assert np.array_equal(
         np.asarray(JMLE.partial_eval_cols(jnp.asarray(mat), jnp.asarray(r[:3]))),
         F.to_np(MLE.partial_eval_cols(_t(mat), _t(r[:3]))))
+
+
+@pytest.mark.parametrize("blowup", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [1, 2, 8, 512])
+def test_k2_rs_encode_matches_jax(c, blowup):
+    """The RS entry (unpadded rows in) equals the JAX package's pad-then-NTT
+    encode, through the wrapper and through core.ntt.rs_encode."""
+    x = _words(100 * c + blowup, (2, c))
+    want = np.asarray(JNTT.rs_encode(jnp.asarray(x), blowup))
+    assert np.array_equal(want, F.to_np(K2.rs_encode_rows(_t(x), blowup)))
+    assert np.array_equal(want, F.to_np(NTT.rs_encode(_t(x), blowup)))
+
+
+def test_k2_stage_table():
+    """The kernel's twiddles: row 2^s + j holds w_{2^(s+1)}^j as a plain
+    residue (w_m = g^((P - 1) / m) for the generator g) and its Shoup
+    quotient floor(w 2^32 / P); the Shoup product x w - floor(x w' / 2^32) P
+    reduced once equals the Montgomery product with the JAX package's
+    Montgomery twiddles."""
+    rng = np.random.default_rng(3)
+    for n in (2, 8, 4096):
+        for inverse in (False, True):
+            W = K2.stage_table(n, inverse)
+            assert W.shape == (n, 2) and W.dtype == np.uint32
+            for s in range(n.bit_length() - 1):
+                w = pow(F.GENERATOR, (P - 1) >> (s + 1), P)
+                if inverse:
+                    w = pow(w, P - 2, P)
+                for j in sorted({0, min(1, (1 << s) - 1), (1 << s) - 1}):
+                    wj, wq = int(W[(1 << s) + j, 0]), int(W[(1 << s) + j, 1])
+                    assert wj == pow(w, j, P) and wq == (wj << 32) // P
+                    for x in [0, 1, P - 1, P - 2, *rng.integers(0, 2**32, 4)]:
+                        r = (int(x) * wj - ((int(x) * wq) >> 32) * P) % 2**32
+                        assert r < 2 * P
+                        r = r - P if r >= P else r
+                        assert r == int(x) * wj % P == (
+                            int(x) * (wj * 2**32 % P) * F.R_INV % P)
+
+
+# K2 and K4 calls of one attest of chip_smoke.py's served chain (4 gpt2
+# layers at d=128, 16 PCS queries), as its serve phase counts them: K2 by
+# (rows, n, c), K4 by (M, K, N).  A copy, not a count.
+_ATTEST_K2 = {(1024, 4096, 1024): 4, (256, 2048, 512): 4, (160, 256, 64): 1}
+_ATTEST_K4 = {(4, 1024, 1024): 4, (4, 512, 1024): 4, (4, 256, 512): 4,
+              (4, 32, 64): 8}
+_WEIGHT_K4 = (4, 512, 1024)
+_HELPER_K4 = (4, 1024, 1024)
+
+
+@pytest.mark.parametrize("K", [1, 3, 33, 256, 512, 1024, 1025, 4096])
+def test_k4_plan_covers_k(K):
+    """A block's walk over K as the kernel makes it (row slot s of the
+    block's warps x 16 takes the row pairs s, s + slots, ...; a pair is rows
+    2p and 2p + 1, which share one reduction) reaches every k exactly once;
+    whole warps, at most 8, none without a pair; at most 8 rows of A a
+    block, and a block for every 4 columns and every mt rows."""
+    for M, N in ((4, 1024), (4, 512), (4, 64), (1, 3), (11, 70), (64, 4)):
+        pl = K4.plan(M, K, N)
+        pairs = -(-K // 2)
+        slots = pl.threads // 32 * K4.SLOTS_PER_WARP
+        seen = np.zeros(K, dtype=np.int64)
+        for slot in range(slots):
+            for p in range(slot, pairs, slots):
+                seen[[k for k in (2 * p, 2 * p + 1) if k < K]] += 1
+        assert np.array_equal(seen, np.ones(K, dtype=np.int64))
+        assert pl.threads % 32 == 0 and 32 <= pl.threads <= 256
+        assert (pl.threads // 32 - 1) * K4.SLOTS_PER_WARP < max(pairs, 1)
+        assert pl.mt in (1, 2, 4, 8) and pl.mt >= min(M, 8)
+        assert pl.blocks == -(-N // K4.COLS) * -(-M // pl.mt)
+
+
+def test_k4_plan_fills_the_card_at_the_attest_shapes():
+    """At the weight and helper shapes each of the H100's 132 SMs gets a
+    block; an attest makes 20 K4 calls and 9 K2 calls, one launch each."""
+    assert sum(_ATTEST_K4.values()) == 20 and sum(_ATTEST_K2.values()) == 9
+    for shape in (_WEIGHT_K4, _HELPER_K4):
+        assert shape in _ATTEST_K4
+        assert K4.plan(*shape).blocks >= 132
