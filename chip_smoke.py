@@ -14,9 +14,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the shapes of the d=128 attestation path (K2's RS encode and
              K4 at every shape one attest and the setup launch; K5: the
              largest sum-check claim of that path, and a sweep of small
-             ones), with the edge words 0, 1, P-1, P-2; results must be
-             equal element for element.  Times kernel and plain version
-             with CUDA events (K2, K4, K5 also by torch.profiler).
+             ones; K2's long rows at 2^16 and 2^17 words and the
+             verifier's 4x2^14 -> 2^16 encode), with the edge words 0, 1,
+             P-1, P-2; results must be equal element for element.  Times
+             kernel and plain version with CUDA events (K2, K4, K5 also by
+             torch.profiler).
    k1k3    — K1 and K3 at the main path's dominant shapes (a one-row
              4096-word and 4-word sponge, hash_rows 4096x512, K3 at d = 2
              and 3 for n = 1024 and d = 2 for n = 2^19): CUDA-event and
@@ -39,7 +41,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              must have launched.  The last attest runs under
              torch.profiler, for the device's busy share and K2/K4's device
              ms; its K2 and K4 calls are counted by shape and must be the
-             shapes k2k4 times (ATTEST_K2, ATTEST_K4).
+             shapes k2k4 times (ATTEST_K2, ATTEST_K4).  The first attest's
+             eq-vector builds are replayed batched and one table at a
+             time (time_e_vec): equal words, the two times.
 6. analysis — the soundness analysis in-process on the card
              (``python -m repro_torch.analysis --all --mutants``): zero
              findings, every kernel equal to its plain version on edge
@@ -48,6 +52,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              lints over it: zero findings.  The counters are zeroed just
              before and read just after: all five kernels, K5 among them
              (it runs on this path only), must have launched.
+7. llama   — first the llama golden toy (tests/data/gen_golden_llama.py)
+             on the card, its bytes equal to golden_llama_{card,v1,v2}.bin,
+             accepted by the port's verifier, a flipped byte rejected;
+             then the llama family at TinyLlama-1.1B width (d=2048, dff=5632,
+             32 query heads on 4 KV heads, dh=64, seq=8), 2 of its 22
+             layers (depth cut for the card's memory), random weights from
+             a seed: Fisher scores from ``fisher_from_logprob_fn`` on the
+             card over a small float function of the two layers'
+             dequantized weights (and again on the CPU: the same scores);
+             a ProofService holding them publishes its ModelCard, answers
+             2 attests at budget 1.0 and 1 at budget 0.5 with the fisher
+             selector, each verified by the port on the card; the Fisher
+             attest must prove exactly the layer ``select_fisher`` picks.
+             Per request: seconds, forward / commit / prove seconds, verify
+             seconds, wire bytes, checked layers, launches per kernel, the
+             K2/K4 shape histogram, peak device memory; for the setup, its
+             peak by stage (MemoryStages).  The counters are zeroed just
+             before and read just after: K1-K4 must have launched, K2 on
+             rows of 2^16 and 2^17 words (its two-launch long-row path,
+             counted apart as ``ntt_long_rows``).  The kernels phase holds
+             that path against the plain version; k2long times it at the
+             llama path's shapes and holds it against the plain version
+             at 512 rows.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
@@ -81,6 +108,11 @@ GOLDEN_CFG = dict(family="gpt2", d=8, dff=16, heads=1, kv_heads=1, dh=8,
                   seq=4)
 GOLDEN_WEIGHT_SEED = 1234
 GOLDEN_QUERY_SEED = 5678
+# The llama golden toy: the config and seeds of tests/data/gen_golden_llama.py.
+GOLDEN_LLAMA_CFG = dict(family="llama", d=8, dff=16, heads=2, kv_heads=1,
+                        dh=4, seq=4)
+GOLDEN_LLAMA_WEIGHT_SEED = 4321
+GOLDEN_LLAMA_QUERY_SEED = 8765
 
 # Peak rates of one H100 SXM (at its 700 W limit): HBM bandwidth, and the
 # INT32 issue rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
@@ -100,16 +132,38 @@ INT64_BYTES = 8
 # rows x c message words into rows x n; K4 by (M, K, N).  K2: the LogUp
 # helper (2^20 words), the aux witness, the boundary batch; K4: the opening
 # rows of the helper, weight, aux and short commitments.  SETUP_*: the calls
-# made once per service (weight commitment, its range proof's helper).
+# made once per service (weight commitment; its range proof's helper,
+# encoded again for the opened columns).
 ATTEST_K2 = {(1024, 4096, 1024): 4, (256, 2048, 512): 4, (160, 256, 64): 1}
 ATTEST_K4 = {(4, 1024, 1024): 4, (4, 512, 1024): 4, (4, 256, 512): 4,
              (4, 32, 64): 8}
-SETUP_K2 = {(512, 4096, 1024): 4, (1024, 8192, 2048): 4}
+SETUP_K2 = {(512, 4096, 1024): 4, (1024, 8192, 2048): 8}
 SETUP_K4 = {(4, 1024, 2048): 4}
+
+# The llama family at the width of TinyLlama-1.1B
+# (src/repro/configs/tinyllama_1_1b.py: d=2048, ffn 5632, 32 heads on 4 KV
+# heads of 64), at seq 8.  Depth is cut from 22 layers to 2: a layer's
+# weight commitment keeps ~5 GiB of int64 words on the card and its setup
+# passes through ~50 GiB more, so 22 would not fit in 80 GB.
+LLAMA_CFG = dict(family="llama", d=2048, dff=5632, heads=32, kv_heads=4,
+                 dh=64, seq=8)
+LLAMA_LAYERS = 2
+LLAMA_FULL_LAYERS = 22
+LLAMA_ATTESTS = 2              # at budget 1.0; then one Fisher-selected
+LLAMA_FISHER_BUDGET = 0.5
+LLAMA_FISHER_RTOL = 1e-5       # card against CPU, as tests/test_torch_fisher.py
+LLAMA_VOCAB = 64               # the Fisher function's readout classes
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def progress(phase: str, what: str, t0: float) -> None:
+    """A line on standard error as a long phase goes (its JSON comes at
+    the end)."""
+    print(f"[{phase}] {what} at {time.monotonic() - t0:.1f} s", file=sys.stderr,
+          flush=True)
 
 
 def fail(phase: str, msg: str) -> None:
@@ -187,10 +241,10 @@ def check_kernels(dev, shapes, gen):
     R, C = 1 << wr, 1 << wc
     nw = C * PCS_BLOWUP                       # encoded row length
     rec = {}
-    errs = {"poseidon2": 0, "ntt": 0, "sumcheck_round": 0, "modmatmul": 0,
-            "sumcheck_fold": 0}
-    owner = {"K1": "poseidon2", "K2": "ntt", "K3": "sumcheck_round",
-             "K4": "modmatmul", "K5": "sumcheck_fold"}
+    errs = {"poseidon2": 0, "ntt": 0, "ntt_long_rows": 0, "sumcheck_round": 0,
+            "modmatmul": 0, "sumcheck_fold": 0}
+    owner = {"K1": "poseidon2", "K2": "ntt", "K2long": "ntt_long_rows",
+             "K3": "sumcheck_round", "K4": "modmatmul", "K5": "sumcheck_fold"}
 
     def check(what, a, b):
         e = max_abs_err(a, b)
@@ -263,6 +317,25 @@ def check_kernels(dev, shapes, gen):
         for inv in (False, True):
             check(f"K2 ntt n={n} inverse={inv}", K2.ntt_rows(small, inv),
                   K2.ntt_rows_plain(small, inv))
+    # rows longer than 2^15 words: the two-launch path, both entries, at
+    # the llama path's row lengths (2^16: weights and the verifier's Fp4
+    # row; 2^17: the setup's LogUp helper), and the verifier's exact shape;
+    # k2long holds 512-row shapes, where both launches' loops take turns
+    for lg in (16, 17):
+        n = 1 << lg
+        x = rand_words(gen, (3, n), dev)
+        for inv in (False, True):
+            check(f"K2long ntt n=2^{lg} inverse={inv}", K2.ntt_rows(x, inv),
+                  K2.ntt_rows_plain(x, inv))
+        msg = rand_words(gen, (3, n // PCS_BLOWUP), dev)
+        check(f"K2long rs_encode 3x{n // PCS_BLOWUP} -> 3x{n}",
+              K2.rs_encode_rows(msg, PCS_BLOWUP),
+              K2.rs_encode_rows_plain(msg, PCS_BLOWUP))
+    for (r, n, c), what in K2_LONG_PATH:
+        if r * n <= 1 << 20:
+            msg = rand_words(gen, (r, c), dev)
+            check(f"K2long rs_encode {r}x{c} -> {r}x{n} ({what})",
+                  K2.rs_encode_rows(msg, n // c), K2.rs_encode_rows_plain(msg, n // c))
     (hr, hn, hc) = max(ATTEST_K2, key=lambda k: k[0] * k[1])
     hmsg = rand_words(gen, (hr, hc), dev)
     _, prof = profiled_call(lambda: [K2.rs_encode_rows(hmsg, hn // hc) for _ in range(20)])
@@ -351,6 +424,7 @@ def check_kernels(dev, shapes, gen):
         shape=f"fold_round d=2 n={R * C} (the weight-commitment opening's claim)")
     for name, r in rec.items():
         r["max_abs_err"] = errs[name]
+    rec["ntt"]["long_rows_max_abs_err"] = errs["ntt_long_rows"]
     return rec
 
 
@@ -450,6 +524,58 @@ def time_k2k4(dev, gen):
     return out
 
 
+# K2's long rows as the llama path gives them (rows, n, c): the weight
+# commitment's encode at setup, the setup's LogUp helper, the verifier's Fp4
+# opening row (4 coefficient rows); then the shapes timed against the plain
+# version, which at full size would need tens of GiB.
+K2_LONG_PATH = (((8192, 1 << 16, 1 << 14), "llama weights, setup"),
+                ((16384, 1 << 17, 1 << 15), "llama LogUp helper, setup"),
+                ((4, 1 << 16, 1 << 14), "llama verifier's Fp4 row"))
+K2_LONG_TIMED = (((512, 1 << 17, 1 << 15), "helper rows, 512 of them"),
+                 ((512, 1 << 16, 1 << 14), "weight rows, 512 of them"),
+                 ((512, 1 << 16, 1 << 16), "plain transform"))
+
+
+def time_k2_long(dev, gen):
+    """K2's two-launch path for rows longer than 2^15 words: CUDA-event ms
+    per call (>= 3 calls), launches per call, the bound (u32 words) and the
+    int64-byte floor at the llama path's shapes; at the timed shapes (512
+    rows: both launches' loops over rows take several turns) also the plain
+    version's ms on the same inputs, and its output against the kernel's,
+    edge words planted: any difference fails."""
+    import torch
+    from repro_torch.kernels import ntt_kernel as K2
+    out = []
+    g = torch.Generator(device=dev).manual_seed(int(gen.integers(1 << 31)))
+    for (r, n, c), what in K2_LONG_PATH + K2_LONG_TIMED:
+        x = torch.randint(0, P, (r, c), generator=g, device=dev)
+        x.view(-1)[:len(EDGE_WORDS)] = torch.tensor(EDGE_WORDS, device=dev)
+        if c < n:
+            fn = (lambda x=x, b=n // c: K2.rs_encode_rows(x, b))
+            plain = (lambda x=x, b=n // c: K2.rs_encode_rows_plain(x, b))
+        else:
+            fn, plain = (lambda x=x: K2.ntt_rows(x)), (lambda x=x: K2.ntt_rows_plain(x))
+        before = K2.launches
+        got = fn()
+        launches = K2.launches - before
+        bnd, by = k2_bound(r, n, c)
+        name = f"{'encode' if c < n else 'ntt_rows'} {r}x{c} -> {r}x{n} ({what})"
+        rec = dict(shape=name, rows=r, n=n, c=c,
+                   ms=gpu_ms(fn, 5 if r * n <= 1 << 28 else 3),
+                   launches=launches, bound_ms=bnd, bound_by=by,
+                   int64_floor_ms=k2_bound(r, n, c, INT64_BYTES)[0])
+        if ((r, n, c), what) in K2_LONG_TIMED:
+            rec["plain_ms"] = gpu_ms(plain, 1)
+            rec["max_abs_err"] = max_abs_err(got, plain())
+            if rec["max_abs_err"] != 0:
+                fail("k2long", f"{name}: kernel != plain "
+                     f"(max abs err {rec['max_abs_err']})")
+        out.append(rec)
+        del x, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_k1k3(dev, gen):
     """K1 and K3 at the main path's dominant shapes: CUDA-event ms per call,
     device ms per call (torch.profiler), launches per call, bound.  Uses only
@@ -500,40 +626,45 @@ def time_k1k3(dev, gen):
 # ---------------------------------------------------------------------------
 # Phase 4: the golden toy on the card.
 # ---------------------------------------------------------------------------
-def golden_phase(dev):
+def golden_phase(dev, phase="golden", fields=GOLDEN_CFG,
+                 seeds=(GOLDEN_WEIGHT_SEED, GOLDEN_QUERY_SEED),
+                 prefix="golden", name="golden-model"):
+    """Attest a golden toy on the card: its card and v1/v2 bytes must equal
+    tests/data/<prefix>_{card,v1,v2}.bin; the port's verifier accepts both
+    and rejects a flipped byte."""
     import numpy as np
     from repro_torch import api
     from repro_torch.core import blocks as B
-    cfg = B.BlockCfg(**GOLDEN_CFG)
-    weights = [B.init_weights(cfg, np.random.default_rng(GOLDEN_WEIGHT_SEED))]
-    qrng = np.random.default_rng(GOLDEN_QUERY_SEED)
+    cfg = B.BlockCfg(**fields)
+    weights = [B.init_weights(cfg, np.random.default_rng(seeds[0]))]
+    qrng = np.random.default_rng(seeds[1])
     query = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
                     -32768, 32767).astype(np.int64)
     gold = {}
-    for name in ("card", "v1", "v2"):
-        with open(os.path.join(DATA, f"golden_{name}.bin"), "rb") as fh:
-            gold[name] = fh.read()
+    for v in ("card", "v1", "v2"):
+        with open(os.path.join(DATA, f"{prefix}_{v}.bin"), "rb") as fh:
+            gold[v] = fh.read()
     policy = api.VerifyPolicy(pcs_queries=1)
     t0 = time.monotonic()
     with api.ProofService([cfg], weights, default_queries=1, workers=1,
-                          name="golden-model", device=dev) as svc:
+                          name=name, device=dev) as svc:
         card = svc.model_card.to_bytes()
         att = svc.attest(query, policy, tokens=np.arange(3, dtype=np.int32))
     prove_s = time.monotonic() - t0
     if card != gold["card"]:
-        fail("golden", "ModelCard bytes differ from golden_card.bin")
+        fail(phase, f"ModelCard bytes differ from {prefix}_card.bin")
     att.prove_seconds = api.Attestation.from_bytes(gold["v1"]).prove_seconds
     att.__dict__.pop("_wire_cache", None)
     if att.to_bytes(1) != gold["v1"] or att.to_bytes(2) != gold["v2"]:
-        fail("golden", "attestation bytes differ from golden_v1/v2.bin")
+        fail(phase, f"attestation bytes differ from {prefix}_v1/v2.bin")
     for v in ("v1", "v2"):
         rep = api.verify(gold[v], query, card, policy, device=dev)
         if not rep.ok:
-            fail("golden", f"verify rejected golden {v}: {rep.reason}")
+            fail(phase, f"verify rejected {prefix} {v}: {rep.reason}")
         flipped = bytearray(gold[v])
         flipped[len(flipped) // 2] ^= 0x01
         if api.verify(bytes(flipped), query, card, policy, device=dev).ok:
-            fail("golden", f"verify accepted a flipped golden {v}")
+            fail(phase, f"verify accepted a flipped {prefix} {v}")
     return dict(prove_seconds=prove_s, v1_bytes=len(gold["v1"]),
                 v2_bytes=len(gold["v2"]))
 
@@ -593,6 +724,8 @@ def serve_phase(dev):
                 out["attest_shapes"] = dict(
                     K2=sorted([*k, v] for k, v in K2.launch_shapes.items()),
                     K4=sorted([*k, v] for k, v in K4.launch_shapes.items()))
+            elif q == 0:
+                att, e_vec_calls = recorded_e_vec_calls(svc.attest, x, policy)
             else:
                 att = svc.attest(x, policy)
             wire = att.to_bytes(2)
@@ -614,12 +747,63 @@ def serve_phase(dev):
         got = {tuple(e[:3]): e[3] for e in out["attest_shapes"][k]}
         if got != want:
             fail("serve", f"{k} calls of one attest {got} != {want}")
+    out["e_vec"] = time_e_vec(e_vec_calls)
     plain = sorted(r["seconds"] for r in out["requests"] if not r["profiled"])
     if plain and out["profile"]["device_busy_ms"] is not None:
         # device busy time of the traced attest over the median untraced one
         out["profile"]["busy_share_of_untraced_request"] = (
             out["profile"]["device_busy_ms"] / 1e3 / plain[len(plain) // 2])
     return out
+
+
+def recorded_e_vec_calls(fn, *args):
+    """fn(*args), and the arguments of every ``pcs._build_e_vec`` call it
+    made."""
+    from repro_torch.core import pcs as PCS
+    calls, build = [], PCS._build_e_vec
+
+    def record(*a):
+        calls.append(a)
+        return build(*a)
+    PCS._build_e_vec = record
+    try:
+        return fn(*args), calls
+    finally:
+        PCS._build_e_vec = build
+
+
+def time_e_vec(calls):
+    """Wall ms of one attest's eq-vector builds (``pcs._build_e_vec``),
+    replayed as the attest makes them (eq tables batched per bucket) and
+    with every table taken one at a time in place (the path past
+    E_VEC_BATCH words), in turns batched / one at a time / one at a time /
+    batched; the two must give the same words."""
+    import torch
+    from repro_torch.core import pcs as PCS
+    batch = PCS.E_VEC_BATCH
+
+    def run(limit):
+        PCS.E_VEC_BATCH = limit
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [PCS._build_e_vec(*a) for a in calls]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, res
+        finally:
+            PCS.E_VEC_BATCH = batch
+    run(batch)
+    times = {"batched": [], "one_table_at_a_time": []}
+    for limit, key in ((batch, "batched"), (0, "one_table_at_a_time"),
+                       (0, "one_table_at_a_time"), (batch, "batched")):
+        ms, res = run(limit)
+        times[key].append(ms)
+        if key == "batched":
+            want = res
+        elif not all(torch.equal(a, b) for a, b in zip(res, want)):
+            fail("serve", "eq vector one table at a time != batched")
+    return dict(calls=len(calls), tables=sum(len(a[1]) for a in calls),
+                ms=times)
 
 
 # ---------------------------------------------------------------------------
@@ -660,6 +844,235 @@ def analysis_phase(dev):
     if findings:
         fail("analysis", "full-width replay: "
              + "; ".join(str(f) for f in findings[:10]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the llama family at TinyLlama-1.1B width, Fisher-guided.
+# ---------------------------------------------------------------------------
+def llama_query(q: int):
+    """Request q's query (seeded), shaped for LLAMA_CFG."""
+    import numpy as np
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(**LLAMA_CFG)
+    qrng = np.random.default_rng(SEED + 100 + q)
+    return np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
+                   -32768, 32767).astype(np.int64)
+
+
+def llama_fisher(weights, device):
+    """Fisher scores of the served layers from ``fisher_from_logprob_fn``:
+    a small float64 function of each layer's dequantized weights (RMS norm,
+    the q and o projections, the SiLU-gated MLP, residuals; a seeded
+    readout to LLAMA_VOCAB classes) on the dequantized query of request 0,
+    labels drawn from its own distribution with a seeded CPU generator.
+    Returns (scores, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fisher as FI
+    d = weights[0]["wqT"].shape[1]
+    params = [{k: torch.as_tensor(w[k], dtype=torch.float64, device=device) / 256
+               for k in ("wqT", "woT", "w1T", "w3T", "w2T")} for w in weights]
+    rng = np.random.default_rng(SEED + 200)
+    readout = torch.as_tensor(rng.normal(0, 1 / np.sqrt(d), (d, LLAMA_VOCAB)),
+                              device=device)
+    x = torch.as_tensor(llama_query(0).T / 256.0, device=device)      # (seq, d)
+
+    def rms(h):
+        return h * torch.rsqrt((h * h).mean(-1, keepdim=True) + 1e-6)
+
+    def logprob(ps, h, generator):
+        for p in ps:
+            h = h + (rms(h) @ p["wqT"].T) @ p["woT"].T
+            n = rms(h)
+            h = h + (torch.nn.functional.silu(n @ p["w1T"].T)
+                     * (n @ p["w3T"].T)) @ p["w2T"].T
+        lp = torch.log_softmax(h @ readout, dim=-1)
+        y = torch.multinomial(lp.detach().exp().cpu(), 1, generator=generator)
+        y = y[:, 0].to(lp.device)
+        return lp[torch.arange(lp.shape[0], device=lp.device), y].mean()
+
+    t0 = time.monotonic()
+    scores = FI.fisher_from_logprob_fn(logprob, params, x,
+                                       torch.Generator().manual_seed(SEED),
+                                       n_samples=2)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return scores, time.monotonic() - t0
+
+
+class MemoryStages:
+    """While active, wraps prover functions so each call records the device
+    memory allocated when it starts and the allocator's peak before and
+    when it ends.  The stage that set the peak is the first call to end
+    (the innermost, when calls nest) whose end peak is the final one and
+    above its start peak."""
+
+    def __init__(self, dev):
+        from repro_torch.core import field as F
+        from repro_torch.core import pcs as PCS
+        from repro_torch.core import sumcheck as SC
+        self.dev, self.events, self._saved = dev, [], []
+        self.targets = [
+            ("commit", PCS, "commit", lambda vec, *a, **k: vec.shape[0]),
+            ("Fp4 inverse", F, "f4inv", lambda a: a.shape[0] if a.ndim > 1 else 1),
+            ("eq vector", PCS, "_build_e_vec", lambda n, *a, **k: n),
+            ("sum-check (K3 + scratch)", SC, "prove",
+             lambda fs, *a, **k: fs[0].shape[0]),
+            ("open columns", PCS, "_open_columns",
+             lambda com, *a, **k: com.mat.numel())]
+
+    def __enter__(self):
+        import torch
+        for label, mod, attr, size in self.targets:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, _size=size, **k):
+                n = _size(*a, **k)
+                alloc = torch.cuda.memory_allocated(self.dev)
+                peak_in = torch.cuda.max_memory_allocated(self.dev)
+                r = _fn(*a, **k)
+                self.events.append((_label, n, alloc, peak_in,
+                                    torch.cuda.max_memory_allocated(self.dev)))
+                return r
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+        self._saved.clear()
+
+    def summary(self):
+        """{stage at 2^m words: calls, GiB allocated at the start (max), the
+        peak at the end (max)}, and the stage that set the peak."""
+        gib = 1 << 30
+        stages = {}
+        for label, n, alloc, _, peak in self.events:
+            key = f"{label} at 2^{n.bit_length() - 1}"
+            st = stages.setdefault(key, dict(calls=0, start_gib=0.0, peak_gib=0.0))
+            st["calls"] += 1
+            st["start_gib"] = max(st["start_gib"], alloc / gib)
+            st["peak_gib"] = max(st["peak_gib"], peak / gib)
+        top = max((e[4] for e in self.events), default=0)
+        setter = next((f"{e[0]} at 2^{e[1].bit_length() - 1}" for e in self.events
+                       if e[4] == top and e[4] > e[3]), None)
+        return dict(stages=stages, peak_set_by=setter)
+
+
+def _shape_delta(after, before):
+    return sorted([*k, v - before.get(k, 0)] for k, v in after.items()
+                  if v != before.get(k, 0))
+
+
+def llama_phase(dev):
+    """Setup, 2 attests at budget 1.0 and a Fisher-selected one at 0.5 on
+    the 2-layer TinyLlama-width chain, each verified on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    from repro_torch.core import fisher as FI
+    from repro_torch.kernels import modmatmul as K4
+    from repro_torch.kernels import ntt_kernel as K2
+    cfg = B.BlockCfg(**LLAMA_CFG)
+    out = dict(config=LLAMA_CFG, layers=LLAMA_LAYERS,
+               depth_cut=f"{LLAMA_LAYERS} of {LLAMA_FULL_LAYERS} layers",
+               pcs_blowup=PCS_BLOWUP, pcs_queries=PCS_QUERIES, requests=[])
+    start = time.monotonic()
+    # the llama golden toy first: the card's llama path, byte for byte
+    out["golden_llama"] = golden_phase(
+        dev, "llama", GOLDEN_LLAMA_CFG,
+        (GOLDEN_LLAMA_WEIGHT_SEED, GOLDEN_LLAMA_QUERY_SEED), "golden_llama",
+        "golden-llama")
+    progress("llama", "llama golden bytes equal", start)
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 10)
+    weights = [B.init_weights(cfg, rng) for _ in range(LLAMA_LAYERS)]
+    out["weights_seconds"] = time.monotonic() - t0
+    progress("llama", "weights made", start)
+    scores, fisher_s = llama_fisher(weights, dev)
+    cpu_scores, cpu_s = llama_fisher(weights, torch.device("cpu"))
+    rel = np.abs(scores.per_layer_trace - cpu_scores.per_layer_trace) / \
+        np.abs(cpu_scores.per_layer_trace)
+    out["fisher"] = dict(trace=scores.per_layer_trace.tolist(),
+                         params=scores.per_layer_params.tolist(),
+                         importance=scores.importance.tolist(),
+                         cpu_trace=cpu_scores.per_layer_trace.tolist(),
+                         max_rel_diff_cpu=float(rel.max()),
+                         seconds=fisher_s, cpu_seconds=cpu_s)
+    if not np.allclose(scores.per_layer_trace, cpu_scores.per_layer_trace,
+                       rtol=LLAMA_FISHER_RTOL, atol=0):
+        fail("llama", f"Fisher scores on the card {scores.per_layer_trace} "
+             f"!= CPU {cpu_scores.per_layer_trace} (rtol {LLAMA_FISHER_RTOL})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K2.launch_shapes.clear()
+    K4.launch_shapes.clear()
+    gib = 1 << 30
+    policies = [api.VerifyPolicy(pcs_queries=PCS_QUERIES)] * LLAMA_ATTESTS + [
+        api.VerifyPolicy(budget=LLAMA_FISHER_BUDGET, selector="fisher",
+                         pcs_queries=PCS_QUERIES)]
+    with api.ProofService([cfg] * LLAMA_LAYERS, weights, pcs_blowup=PCS_BLOWUP,
+                          default_queries=PCS_QUERIES, workers=1,
+                          fisher_scores=scores, name="chip-smoke-llama",
+                          device=dev) as svc:
+        t0 = time.monotonic()
+        with MemoryStages(dev) as stages:
+            card = svc.model_card.to_bytes()
+        torch.cuda.synchronize(dev)
+        out["setup_seconds"] = time.monotonic() - t0
+        progress("llama", "setup done", start)
+        out["setup_max_memory_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+        out["setup_max_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / gib
+        out["setup_memory_stages"] = stages.summary()
+        out["resident_memory_gib"] = torch.cuda.memory_allocated(dev) / gib
+        out["setup_shapes"] = dict(
+            K2=_shape_delta(K2.launch_shapes, {}),
+            K4=_shape_delta(K4.launch_shapes, {}))
+        for q, policy in enumerate(policies):
+            x = llama_query(q)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts()
+            s2, s4 = dict(K2.launch_shapes), dict(K4.launch_shapes)
+            t0 = time.monotonic()
+            att = svc.attest(x, policy)
+            wire = att.to_bytes(2)
+            t_att = time.monotonic() - t0
+            mid = launch_counts()
+            a2, a4 = dict(K2.launch_shapes), dict(K4.launch_shapes)
+            mem = torch.cuda.max_memory_allocated(dev) / gib
+            rep = api.verify(wire, x, card, policy, device=dev)
+            if not rep.ok:
+                fail("llama", f"request {q}: verify rejected: {rep.reason}")
+            r = svc.last_report
+            rec = dict(
+                policy=dict(budget=policy.budget, selector=policy.selector),
+                proved_layers=list(att.proved_layers), seconds=t_att,
+                forward_seconds=r.forward_seconds,
+                commit_seconds=r.commit_seconds, prove_seconds=r.prove_seconds,
+                verify_seconds=rep.verify_seconds, wire_bytes=len(wire),
+                checked_layers=rep.checked_layers, max_memory_gib=mem,
+                attest_launches={k: mid[k] - before[k] for k in mid},
+                verify_launches={k: v - mid[k] for k, v in launch_counts().items()},
+                attest_shapes=dict(K2=_shape_delta(a2, s2), K4=_shape_delta(a4, s4)),
+                verify_shapes=dict(K2=_shape_delta(K2.launch_shapes, a2),
+                                   K4=_shape_delta(K4.launch_shapes, a4)))
+            out["requests"].append(rec)
+            progress("llama", f"request {q} verified ({t_att:.1f} s attest, "
+                     f"{rep.verify_seconds:.1f} s verify, {mem:.1f} GiB)", start)
+            if policy.budget < 1.0:
+                want = FI.select_fisher(scores, policy.expected_layers(LLAMA_LAYERS))
+                if att.proved_layers != want or rep.checked_layers != len(want):
+                    fail("llama", f"Fisher attest proved {att.proved_layers}, "
+                         f"checked {rep.checked_layers}; select_fisher: {want}")
+            elif rep.checked_layers != LLAMA_LAYERS:
+                fail("llama", f"request {q}: checked {rep.checked_layers} layers")
+    ns = {k[1] for k in K2.launch_shapes}
+    out["k2_row_lengths"] = sorted(ns)
+    if not {1 << 16, 1 << 17} <= ns:
+        fail("llama", f"K2 never ran rows of 2^16 and 2^17 words: {sorted(ns)}")
     return out
 
 
@@ -723,12 +1136,19 @@ ANALYSIS_KERNELS = SERVE_KERNELS + ("sumcheck_fold",)
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import ntt_kernel as K2
     for _, mod, _, _ in kernel_modules():
         mod.launches = 0
+    K2.long_launches = 0
 
 
 def launch_counts():
-    return {name: mod.launches for name, mod, _, _ in kernel_modules()}
+    """Launches per kernel since reset_counts; ``ntt_long_rows`` is the
+    part of K2's made on rows longer than 2^15 words."""
+    from repro_torch.kernels import ntt_kernel as K2
+    out = {name: mod.launches for name, mod, _, _ in kernel_modules()}
+    out["ntt_long_rows"] = K2.long_launches
+    return out
 
 
 def main() -> int:
@@ -766,7 +1186,8 @@ def main() -> int:
     t0 = time.monotonic()
     recs = check_kernels(dev, main_path_shapes(), np.random.default_rng(SEED))
     emit({"phase": "kernels", "ok": True, "seconds": time.monotonic() - t0,
-          "max_abs_err": {k: v["max_abs_err"] for k, v in recs.items()},
+          "max_abs_err": {**{k: v["max_abs_err"] for k, v in recs.items()},
+                          "ntt_long_rows": recs["ntt"]["long_rows_max_abs_err"]},
           "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"],
                          kernels_device_ms=v.get("device_ms"))
                  for k, v in recs.items()}})
@@ -801,6 +1222,24 @@ def main() -> int:
     if idle:
         fail("analysis", f"kernels never launched on the analysis path: {idle}")
 
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    k2long = time_k2_long(dev, np.random.default_rng(SEED + 3))
+    emit({"phase": "k2long", "ok": True, "seconds": time.monotonic() - t0,
+          "times": k2long})
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.monotonic()
+    llama = llama_phase(dev)
+    llama_launches = launch_counts()
+    emit({"phase": "llama", "ok": True, "seconds": time.monotonic() - t0,
+          "launches": llama_launches, **llama})
+    idle = [n for n in SERVE_KERNELS + ("ntt_long_rows",)
+            if llama_launches[n] == 0]
+    if idle:
+        fail("llama", f"kernels never launched on the llama path: {idle}")
+
     kernels = []
     for name, _, src, replaces in kernel_modules():
         r = recs[name]
@@ -811,6 +1250,18 @@ def main() -> int:
             launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None))
+    # K2's long-row path (the llama path's rows): its launches there, its
+    # checks against the plain version (kernels and k2long phases), and the
+    # helper-row shape timed against the plain version
+    t = next(t for t in k2long if "plain_ms" in t)
+    long_err = max(recs["ntt"]["long_rows_max_abs_err"],
+                   *(t["max_abs_err"] for t in k2long if "max_abs_err" in t))
+    kernels.append(dict(
+        name="ntt_long_rows", route="cuda", source="src/repro_torch/csrc/ntt.cu",
+        replaces="src/repro/kernels/ntt_kernel.py:66",
+        launches=llama_launches["ntt_long_rows"], max_abs_err=long_err,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None))
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -30,8 +30,10 @@ port has no jaxprs, so the pass has three parts:
     CUDA device each ``ANALYSIS_ENTRIES`` entry is run instead through its
     kernel on edge-word inputs — every word at 0, 1, P-2 and P-1 in turn,
     then seeded random words with those words planted — and compared
-    element for element with the plain version that (b) proved.  A
-    difference is a ``kernel-mismatch`` finding.  On the CPU there is no
+    element for element with the plain version that (b) proved; so are
+    K2's long rows (``LONG_ROW_ENTRIES``, rows of 2^16 and 2^17 words,
+    which take the kernel's two-launch path).  A difference is a
+    ``kernel-mismatch`` finding.  On the CPU there is no
     kernel and (c) does not run.
 """
 from __future__ import annotations
@@ -456,5 +458,6 @@ def run(device=None) -> List[Finding]:
     for nm, spec in list(F.ANALYSIS_BOUNDS.items()) + list(entries.items()):
         findings.extend(analyze_fn(nm, spec["fn"], spec["args"], spec["out"]))
     if dev.type == "cuda":
-        findings.extend(kernel_checks(entries, dev))
+        findings.extend(kernel_checks({**entries, **KOPS.LONG_ROW_ENTRIES},
+                                      dev))
     return findings

@@ -9,8 +9,8 @@ only the query and the published ``ModelCard``, re-derives c_0 from the
 query, checks the Eq. 3 adjacency and every layer proof, and never raises
 on malformed input.
 
-Not ported yet: Fisher-guided selection, ``attest_many``,
-``StreamingVerifier`` and ``verify_batch``.
+Not ported yet: ``attest_many``, ``StreamingVerifier`` and
+``verify_batch``.
 
 Lock order (ranked in repro_torch.analysis.locks): ``ProofService._lock`` is
 rank 20, the outermost lock of the port (the gateway's rank 10 is not
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.core import fisher as FISH
 from repro_torch.core import layer_proof as LP
 from repro_torch.core import merkle as MK
 from repro_torch.core import pcs as PCS
@@ -46,30 +47,26 @@ def _local_lut_digests() -> Dict[str, bytes]:
     return _LUT_DIGEST_CACHE
 
 
-def select_random(n_layers: int, k: int, seed: int) -> List[int]:
-    rng = np.random.default_rng(seed)
-    return sorted(int(i) for i in rng.choice(n_layers, size=k, replace=False))
-
-
-def select_uniform(n_layers: int, k: int) -> List[int]:
-    idx = np.linspace(0, n_layers - 1, k)
-    return sorted(set(int(round(i)) for i in idx))
-
-
 def select_layers(policy: VerifyPolicy, n_layers: int,
-                  fisher_scores=None) -> List[int]:
+                  fisher_scores: Optional[FISH.FisherScores] = None
+                  ) -> List[int]:
     """Selective-verification layer choice for a policy (paper §5): every
-    layer at budget 1.0, else the uniform or seeded random selector plus
-    ``audit_random`` seed-derived audit layers."""
-    if fisher_scores is not None:
-        raise NotImplementedError(
-            "Fisher-guided selection waits for the port of core/fisher.py")
+    layer at budget 1.0, else the fisher (given scores), uniform or seeded
+    random selector.  ``audit_random`` adds seed-derived audit layers on
+    top of every partial-budget selector: the seed is public, so the audit
+    set is recomputable by the verifier yet unpredictable to a prover that
+    cannot choose the policy."""
     if policy.budget >= 1.0:
         return list(range(n_layers))
     k = policy.expected_layers(n_layers)
     extra = min(policy.audit_random, max(0, n_layers - k))
+    if policy.selector == "fisher" and fisher_scores is not None:
+        if extra:
+            return FISH.fisher_plus_random(fisher_scores, k, extra,
+                                           policy.seed)
+        return FISH.select_fisher(fisher_scores, k)
     if policy.selector == "uniform":
-        base = select_uniform(n_layers, k)
+        base = FISH.select_uniform(n_layers, k)
         if extra:
             rest = [i for i in range(n_layers) if i not in set(base)]
             rng = np.random.default_rng(policy.seed)
@@ -77,7 +74,8 @@ def select_layers(policy: VerifyPolicy, n_layers: int,
                                replace=False)
             return sorted(set(base) | {rest[int(i)] for i in audit})
         return base
-    return select_random(n_layers, min(n_layers, k + extra), policy.seed)
+    return FISH.select_random(n_layers, min(n_layers, k + extra),
+                              policy.seed)
 
 
 class ProofService:
@@ -86,13 +84,10 @@ class ProofService:
     def __init__(self, block_cfgs: Sequence, weights: Sequence[Dict],
                  pcs_blowup: int = 4, default_queries: int = 16,
                  workers: int = 1, backend: str = "thread",
-                 fisher_scores=None,
+                 fisher_scores: Optional[FISH.FisherScores] = None,
                  weight_cache: Optional[WeightCommitCache] = None,
                  fail_claims=None, name: str = "", device=None):
         assert len(block_cfgs) == len(weights)
-        if fisher_scores is not None:
-            raise NotImplementedError(
-                "Fisher-guided selection waits for the port of core/fisher.py")
         self.device = resolve_device(device)
         self.block_cfgs = list(block_cfgs)
         self.weights = list(weights)
@@ -100,6 +95,7 @@ class ProofService:
         self.default_queries = int(default_queries)
         self.workers = workers
         self.backend = backend
+        self.fisher_scores = fisher_scores
         self.fail_claims = fail_claims
         self.name = name
         self.weight_cache = (weight_cache if weight_cache is not None
@@ -157,7 +153,8 @@ class ProofService:
         """Prove the quantized forward of ``query`` under ``policy``."""
         if policy is None:
             policy = VerifyPolicy(pcs_queries=self.default_queries)
-        subset = select_layers(policy, len(self.block_cfgs))
+        subset = select_layers(policy, len(self.block_cfgs),
+                               self.fisher_scores)
         eng = self.engine_for(policy.pcs_queries)
         t0 = time.monotonic()
         proof, report = eng.prove(np.asarray(query), layer_subset=subset)

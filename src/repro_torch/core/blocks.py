@@ -1,11 +1,13 @@
-"""Per-layer transformer block circuits, gpt2 family (mirrors
-``repro.core.blocks``): LayerNorm, learned positions, GELU MLP, QKV biases.
+"""Per-layer transformer block circuits (mirrors ``repro.core.blocks``).
+
+Two families cover the evaluation models:
+* 'gpt2'  — LayerNorm, learned positions (no RoPE), GELU MLP, QKV biases.
+* 'llama' — RMSNorm, RoPE, GQA, SiLU gate MLP, no biases (TinyLLaMA et al).
 
 ``block_forward`` is the quantized forward on int64 tensors (qops) that
 records the full witness trace; ``block_argument`` is the deterministic
 gadget sequence run by prover and verifier.  Layouts are public functions
-of the config.  Activations are feature-major (d_pad, seq).  The llama
-family is not ported yet: a llama ``BlockCfg`` raises.
+of the config.  Activations are feature-major (d_pad, seq).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def _pad2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
-    family: str                  # 'gpt2' (the llama family is not ported)
+    family: str                  # 'gpt2' | 'llama'
     d: int
     dff: int
     heads: int
@@ -36,10 +38,7 @@ class BlockCfg:
     seq: int
 
     def __post_init__(self):
-        if self.family == "llama":
-            raise NotImplementedError(
-                "the llama block family is not ported to repro_torch yet")
-        assert self.family == "gpt2"
+        assert self.family in ("gpt2", "llama")
         assert self.seq & (self.seq - 1) == 0, "seq must be a power of two"
         assert self.dh & (self.dh - 1) == 0, "dh must be a power of two"
         assert self.heads % self.kv_heads == 0
@@ -67,15 +66,15 @@ class BlockCfg:
 
     @property
     def ln_kind(self) -> str:
-        return "layernorm"
+        return "layernorm" if self.family == "gpt2" else "rmsnorm"
 
     @property
     def act(self) -> str:
-        return "gelu"
+        return "gelu" if self.family == "gpt2" else "silu"
 
     @property
     def has_bias(self) -> bool:
-        return True
+        return self.family == "gpt2"
 
     @property
     def causal_mask(self) -> np.ndarray:
@@ -85,15 +84,23 @@ class BlockCfg:
 # ---------------------------------------------------------------------------
 # Weights: quantized int16 f8, stored transposed (d_out, d_in), padded.
 # ---------------------------------------------------------------------------
+WEIGHT_NAMES_LLAMA = ["wqT", "wkT", "wvT", "woT", "w1T", "w3T", "w2T",
+                      "g1", "g2"]
+
+
 def weight_shapes(cfg: BlockCfg) -> Dict[str, Tuple[int, ...]]:
     d, kv, ff = cfg.d_pad, cfg.kvd_pad, cfg.dff_pad
     qd = cfg.qd_pad
-    return {
+    shapes = {
         "wqT": (qd, d), "wkT": (kv, d), "wvT": (kv, d), "woT": (d, qd),
         "w1T": (ff, d), "w2T": (d, ff), "g1": (d,), "g2": (d,),
-        "bq": (qd,), "bk": (kv,), "bv": (kv,), "bo": (d,),
-        "b1f": (ff,), "b2f": (d,), "be1": (d,), "be2": (d,),
     }
+    if cfg.family == "gpt2":
+        shapes.update({"bq": (qd,), "bk": (kv,), "bv": (kv,), "bo": (d,),
+                       "b1f": (ff,), "b2f": (d,), "be1": (d,), "be2": (d,)})
+    else:
+        shapes["w3T"] = (ff, d)
+    return shapes
 
 
 def init_weights(cfg: BlockCfg, rng: np.random.Generator,
@@ -122,7 +129,7 @@ def init_weights(cfg: BlockCfg, rng: np.random.Generator,
         if name in ("wkT", "wvT"):
             q[cfg.kv_heads * cfg.dh:, :] = 0
             q[:, cfg.d:] = 0
-        if name == "w1T":
+        if name in ("w1T", "w3T"):
             q[cfg.dff:, :] = 0
             q[:, cfg.d:] = 0
         if name == "w2T":
@@ -157,10 +164,9 @@ def weights_from_numpy(cfg: BlockCfg, w: Dict[str, np.ndarray], device
 # ---------------------------------------------------------------------------
 # Quantized forward pass: returns output + full witness trace.
 # ---------------------------------------------------------------------------
-def _layernorm(cfg: BlockCfg, x: torch.Tensor, g: torch.Tensor,
-               b: torch.Tensor, tag: str, tr: Dict[str, torch.Tensor]
-               ) -> torch.Tensor:
-    """LayerNorm with explicit masked xc (padded rows zeroed)."""
+def _ln_mean(cfg: BlockCfg, x: torch.Tensor, tag: str,
+             tr: Dict[str, torch.Tensor]) -> None:
+    """LayerNorm's mean part: mu and the masked xc (padded rows zeroed)."""
     d_real = cfg.d
     s1 = x.sum(dim=0)
     mu = (s1 + d_real // 2) // d_real
@@ -169,6 +175,24 @@ def _layernorm(cfg: BlockCfg, x: torch.Tensor, g: torch.Tensor,
     xc = x - mu[None, :]
     xc[d_real:, :] = 0
     tr[f"{tag}.xc"] = xc
+
+
+def _norm(cfg: BlockCfg, x: torch.Tensor, g: torch.Tensor,
+          b: Optional[torch.Tensor], tag: str, tr: Dict[str, torch.Tensor]
+          ) -> torch.Tensor:
+    """LayerNorm (gpt2) or RMSNorm (llama: xc = x, no bias)."""
+    if cfg.ln_kind == "layernorm":
+        _ln_mean(cfg, x, tag, tr)
+    else:
+        tr[f"{tag}.xc"] = x
+    return _ln_recompute(cfg, g, b, tag, tr)
+
+
+def _ln_recompute(cfg: BlockCfg, g: torch.Tensor, b: Optional[torch.Tensor],
+                  tag: str, tr: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean square, rsqrt LUT and scale of tr[tag.xc] (both norms)."""
+    d_real = cfg.d
+    xc = tr[f"{tag}.xc"]
     sq = (xc * xc).sum(dim=0)
     D = d_real << 4
     ms = (sq + D // 2) // D
@@ -182,7 +206,9 @@ def _layernorm(cfg: BlockCfg, x: torch.Tensor, g: torch.Tensor,
     xn = Q.assert16(Q.rshift_round(xn_acc, 11), "ln xn")
     tr[f"{tag}.xn"] = xn
     tr[f"{tag}.err_xn"] = xn_acc + (1 << 10) - Q.shl(xn, 11)
-    y_acc = xn * g[:, None] + Q.shl(b[:, None], Q.F8)
+    y_acc = xn * g[:, None]
+    if b is not None:
+        y_acc = y_acc + Q.shl(b[:, None], Q.F8)
     y = Q.assert16(Q.rshift_round(y_acc, Q.F8), "ln y")
     tr[f"{tag}.y"] = y
     tr[f"{tag}.err_y"] = y_acc + (1 << 7) - Q.shl(y, Q.F8)
@@ -201,22 +227,37 @@ def block_forward(cfg: BlockCfg, w: Dict[str, torch.Tensor], x: torch.Tensor
     x = x.to(torch.int64)
     assert tuple(x.shape) == (d, seq)
 
-    y1 = _layernorm(cfg, x, w["g1"], w["be1"], "ln1", tr)
+    y1 = _norm(cfg, x, w["g1"], w.get("be1"), "ln1", tr)
 
-    mm = Q.q_matmul_rescale(w["wqT"], y1, w["bq"], Q.F8)
+    mm = Q.q_matmul_rescale(w["wqT"], y1, w.get("bq"), Q.F8)
     q, tr["q"], tr["err_q"] = mm["y"], mm["y"], mm["err"]
-    mm = Q.q_matmul_rescale(w["wkT"], y1, w["bk"], Q.F8)
+    mm = Q.q_matmul_rescale(w["wkT"], y1, w.get("bk"), Q.F8)
     k, tr["k"], tr["err_k"] = mm["y"], mm["y"], mm["err"]
-    mm = Q.q_matmul_rescale(w["wvT"], y1, w["bv"], Q.F8)
+    mm = Q.q_matmul_rescale(w["wvT"], y1, w.get("bv"), Q.F8)
     v, tr["v"], tr["err_v"] = mm["y"], mm["y"], mm["err"]
+
+    if cfg.family == "llama":
+        Ct, Sn = (torch.as_tensor(t, device=dev) for t in Q.rope_tables(dh, seq))
+        qr, kr = torch.zeros_like(q), torch.zeros_like(k)
+        err_rq, err_rk = torch.zeros_like(q), torch.zeros_like(k)
+        for src, dst, err, count in ((q, qr, err_rq, H), (k, kr, err_rk, KV)):
+            for h in range(count):
+                rr = Q.q_rope(src[h * dh:(h + 1) * dh], Ct, Sn)
+                dst[h * dh:(h + 1) * dh] = rr["y"]
+                err[h * dh:(h + 1) * dh] = rr["err"]
+        tr["qr"], tr["kr"] = qr, kr
+        tr["err_rq"], tr["err_rk"] = err_rq, err_rk
+        q_att, k_att = qr, kr
+    else:
+        q_att, k_att = q, k
 
     mask = torch.as_tensor(cfg.causal_mask, device=dev)
     group = H // KV
     heads = []
     for h in range(H):
         kvh = h // group
-        heads.append(Q.q_attention_head(q[h * dh:(h + 1) * dh],
-                                        k[kvh * dh:(kvh + 1) * dh],
+        heads.append(Q.q_attention_head(q_att[h * dh:(h + 1) * dh],
+                                        k_att[kvh * dh:(kvh + 1) * dh],
                                         v[kvh * dh:(kvh + 1) * dh], mask))
     for key in ("sidx", "err_s", "e", "P", "w1", "w2", "S"):
         tr[key] = torch.stack([th[key] for th in heads])
@@ -226,17 +267,30 @@ def block_forward(cfg: BlockCfg, w: Dict[str, torch.Tensor], x: torch.Tensor
     err_o[:H * dh] = torch.cat([th["err_o"] for th in heads])
     tr["O"], tr["err_o"] = O, err_o
 
-    mm = Q.q_matmul_rescale(w["woT"], O, w["bo"], Q.F8)
+    mm = Q.q_matmul_rescale(w["woT"], O, w.get("bo"), Q.F8)
     proj, tr["proj"], tr["err_proj"] = mm["y"], mm["y"], mm["err"]
     hmid = Q.assert16(x + proj, "hmid")
     tr["hmid"] = hmid
 
-    y2 = _layernorm(cfg, hmid, w["g2"], w["be2"], "ln2", tr)
+    y2 = _norm(cfg, hmid, w["g2"], w.get("be2"), "ln2", tr)
 
-    acc1 = Q.imatmul(w["w1T"], y2) + Q.shl(w["b1f"][:, None], Q.F8)
+    acc1 = Q.imatmul(w["w1T"], y2)
+    if cfg.has_bias:
+        acc1 = acc1 + Q.shl(w["b1f"][:, None], Q.F8)
     a = Q.q_act(cfg.act, acc1, 4)          # f16 -> f12 LUT input
     tr["gidx"], tr["gout"], tr["err_gidx"] = a["idx"], a["out"], a["err"]
-    acc2 = Q.imatmul(w["w2T"], a["out"]) + Q.shl(w["b2f"][:, None], Q.F8)
+    mlp_in = a["out"]
+    if cfg.family == "llama":
+        accu = Q.imatmul(w["w3T"], y2)
+        u = Q.assert16(Q.rshift_round(accu, Q.F8), "mlp up")
+        tr["up"] = u
+        tr["err_up"] = accu + (1 << 7) - Q.shl(u, Q.F8)
+        gg = Q.q_silu_gate(a["out"], u)
+        tr["gate"], tr["err_gate"] = gg["y"], gg["err"]
+        mlp_in = gg["y"]
+    acc2 = Q.imatmul(w["w2T"], mlp_in)
+    if cfg.has_bias:
+        acc2 = acc2 + Q.shl(w["b2f"][:, None], Q.F8)
     f2 = Q.assert16(Q.rshift_round(acc2, Q.F8), "mlp out")
     tr["f2"] = f2
     tr["err_f2"] = acc2 + (1 << 7) - Q.shl(f2, Q.F8)
@@ -303,12 +357,13 @@ def declare_aux(cfg: BlockCfg, wb: C.WitnessBuilder,
         layout[name] = ("ranged", n, bits)
 
     for tag in ("ln1", "ln2"):
-        limb(f"{tag}.mu", seq)
-        ranged(f"{tag}.e1", seq, max(_log2_ceil(cfg.d), 1))
-        if cfg.d & (cfg.d - 1):
-            ranged(f"{tag}.e1c", seq, _log2_ceil(cfg.d),
-                   key=None if tr is None else "__e1c_" + tag)
-        limb(f"{tag}.xc", d * seq)
+        if cfg.ln_kind == "layernorm":
+            limb(f"{tag}.mu", seq)
+            ranged(f"{tag}.e1", seq, max(_log2_ceil(cfg.d), 1))
+            if cfg.d & (cfg.d - 1):
+                ranged(f"{tag}.e1c", seq, _log2_ceil(cfg.d),
+                       key=None if tr is None else "__e1c_" + tag)
+            limb(f"{tag}.xc", d * seq)
         ranged(f"{tag}.e2", seq, 4 + _log2_ceil(cfg.d))
         if cfg.d & (cfg.d - 1):
             ranged(f"{tag}.e2c", seq, 4 + _log2_ceil(cfg.d),
@@ -325,6 +380,11 @@ def declare_aux(cfg: BlockCfg, wb: C.WitnessBuilder,
     ranged("err_k", kv * seq, 8)
     limb("v", kv * seq)
     ranged("err_v", kv * seq, 8)
+    if cfg.family == "llama":
+        limb("qr", qd * seq)
+        ranged("err_rq", qd * seq, Q.ROPE_F)
+        limb("kr", kv * seq)
+        ranged("err_rk", kv * seq, Q.ROPE_F)
     limb("sidx", H * seq * seq)
     ranged("err_s", H * seq * seq, 12)
     ranged("e", H * seq * seq, 12)
@@ -340,6 +400,11 @@ def declare_aux(cfg: BlockCfg, wb: C.WitnessBuilder,
     limb("gidx", ff * seq)
     ranged("err_gidx", ff * seq, 4)
     limb("gout", ff * seq)
+    if cfg.family == "llama":
+        limb("up", ff * seq)
+        ranged("err_up", ff * seq, 8)
+        limb("gate", ff * seq)
+        ranged("err_gate", ff * seq, 8)
     ranged("err_f2", d * seq, 8)
     limb("f2", d * seq)
     return layout
@@ -351,7 +416,8 @@ def prepare_trace(cfg: BlockCfg, tr: Dict[str, np.ndarray]
     out = dict(tr)
     if cfg.d & (cfg.d - 1):
         for tag in ("ln1", "ln2"):
-            out["__e1c_" + tag] = cfg.d - 1 - tr[f"{tag}.e1"]
+            if cfg.ln_kind == "layernorm":
+                out["__e1c_" + tag] = cfg.d - 1 - tr[f"{tag}.e1"]
             out["__e2c_" + tag] = (cfg.d << 4) - 1 - tr[f"{tag}.e2"]
     return out
 
@@ -426,29 +492,10 @@ def _ln_argument(ctx, cfg, V: Views, Vw: Views, tag: str, x_view,
     log_d, log_seq = _log2(d), _log2(seq)
     log_ds = log_d + log_seq
     dev = ctx.device
-    mu_v = V.limb(f"{tag}.mu")
-    e1_v = V.ranged(f"{tag}.e1")
-    r_t = ctx.challenge_point(log_seq)
-    s1 = C.g_dot_eq(ctx, [x_view], r_t, total_bits=log_ds, eq_pos="trail")
-    rhs = C.f4_lincomb([(d_real, ctx.claim(mu_v, r_t)),
-                        (1, ctx.claim(e1_v, r_t))], 0, dev)
-    ctx.check_eq(Fld.f4add(s1, C._fc(d_real // 2, dev)), rhs,
-                 f"{tag} mean relation")
-    if cfg.d & (cfg.d - 1):
-        C.g_lin_relation(ctx, [(1, e1_v), (1, V.ranged(f"{tag}.e1c"))],
-                         -(d_real - 1), f"{tag} e1 bound", log_n=log_seq)
-    # xc = rowmask * (x - mu)
-    xc_v = V.limb(f"{tag}.xc")
-    r_x = ctx.challenge_point(log_ds)
-    x_minus_mu = C.Affine(terms=((1, x_view),
-                                 (Fld.P - 1, C.BcastRows(mu_v, log_d))))
-    if d_real != d:
-        rowmask = C.Public(tuple([1] * d_real + [0] * (d - d_real)),
-                           f"{tag}.rowmask")
-        t = C.g_dot_eq(ctx, [C.BcastCols(rowmask, log_seq), x_minus_mu], r_x)
+    if cfg.ln_kind == "layernorm":
+        xc_v = _ln_mean_argument(ctx, cfg, V, tag, x_view)
     else:
-        t = C.g_dot_eq(ctx, [x_minus_mu], r_x)
-    ctx.check_eq(ctx.claim(xc_v, r_x), t, f"{tag} xc tie")
+        xc_v = x_view
     # mean square -> rsqrt LUT input
     D = d_real << 4
     ms_v = V.ranged(f"{tag}.ms")
@@ -480,6 +527,68 @@ def _ln_argument(ctx, cfg, V: Views, Vw: Views, tag: str, x_view,
     return V.limb(f"{tag}.y")
 
 
+def _ln_mean_argument(ctx, cfg, V: Views, tag: str, x_view) -> C.Affine:
+    """LayerNorm's mean relation and the xc = rowmask * (x - mu) tie;
+    returns the xc view."""
+    d_real, d, seq = cfg.d, cfg.d_pad, cfg.seq
+    log_d, log_seq = _log2(d), _log2(seq)
+    log_ds = log_d + log_seq
+    dev = ctx.device
+    mu_v = V.limb(f"{tag}.mu")
+    e1_v = V.ranged(f"{tag}.e1")
+    r_t = ctx.challenge_point(log_seq)
+    s1 = C.g_dot_eq(ctx, [x_view], r_t, total_bits=log_ds, eq_pos="trail")
+    rhs = C.f4_lincomb([(d_real, ctx.claim(mu_v, r_t)),
+                        (1, ctx.claim(e1_v, r_t))], 0, dev)
+    ctx.check_eq(Fld.f4add(s1, C._fc(d_real // 2, dev)), rhs,
+                 f"{tag} mean relation")
+    if cfg.d & (cfg.d - 1):
+        C.g_lin_relation(ctx, [(1, e1_v), (1, V.ranged(f"{tag}.e1c"))],
+                         -(d_real - 1), f"{tag} e1 bound", log_n=log_seq)
+    xc_v = V.limb(f"{tag}.xc")
+    r_x = ctx.challenge_point(log_ds)
+    x_minus_mu = C.Affine(terms=((1, x_view),
+                                 (Fld.P - 1, C.BcastRows(mu_v, log_d))))
+    if d_real != d:
+        rowmask = C.Public(tuple([1] * d_real + [0] * (d - d_real)),
+                           f"{tag}.rowmask")
+        t = C.g_dot_eq(ctx, [C.BcastCols(rowmask, log_seq), x_minus_mu], r_x)
+    else:
+        t = C.g_dot_eq(ctx, [x_minus_mu], r_x)
+    ctx.check_eq(ctx.claim(xc_v, r_x), t, f"{tag} xc tie")
+    return xc_v
+
+
+def _rope_argument(ctx, cfg, V: Views) -> None:
+    """RoPE on every query and KV head: each half of a head's rotated
+    rows is a rescale of two public-table dot products."""
+    dh, seq = cfg.dh, cfg.seq
+    Ct, Sn = Q.rope_tables(dh, seq)
+    Cp = C.Public(tuple(Ct.reshape(-1).tolist()), "rope.cos")
+    Sp = C.Public(tuple(Sn.reshape(-1).tolist()), "rope.sin")
+    half = dh // 2
+    lh = _log2(half * seq)
+    for src, dst, err, count in (("q", "qr", "err_rq", cfg.heads),
+                                 ("k", "kr", "err_rk", cfg.kv_heads)):
+        for h in range(count):
+            base = h * dh * seq
+            topv = V.limb_sub(src, base, lh)
+            botv = V.limb_sub(src, base + half * seq, lh)
+            for is_bot in (False, True):
+                r = ctx.challenge_point(lh)
+                if not is_bot:   # top' = top*C - bot*S
+                    acc = Fld.f4sub(C.g_dot_eq(ctx, [Cp, topv], r),
+                                    C.g_dot_eq(ctx, [Sp, botv], r))
+                    off = base
+                else:            # bot' = bot*C + top*S
+                    acc = Fld.f4add(C.g_dot_eq(ctx, [Cp, botv], r),
+                                    C.g_dot_eq(ctx, [Sp, topv], r))
+                    off = base + half * seq
+                C.g_rescale(ctx, acc, r, V.limb_sub(dst, off, lh),
+                            V.ranged_sub(err, off, lh), Q.ROPE_F, 16,
+                            f"rope {dst} h{h}")
+
+
 def block_argument(ctx, cfg: BlockCfg, V: Views, Vw: Views,
                    x_view: C.Affine, y_view: C.Affine,
                    lut_ints: Optional[Dict[str, np.ndarray]] = None):
@@ -492,22 +601,33 @@ def block_argument(ctx, cfg: BlockCfg, V: Views, Vw: Views,
     log_H = _log2(_pad2(H))
     ls2 = 2 * log_seq
 
-    _ln_argument(ctx, cfg, V, Vw, "ln1", x_view, "g1", "be1")
+    bias = cfg.has_bias
+
+    def bv(name):
+        return Vw.limb(name) if bias else None
+
+    _ln_argument(ctx, cfg, V, Vw, "ln1", x_view, "g1",
+                 "be1" if bias else None)
 
     _mm_rescale(ctx, cfg, Vw.hi("wqT"), Vw.lo("wqT"), V.hi("ln1.y"),
                 V.lo("ln1.y"), (qd, d, seq), V.limb("q"), V.ranged("err_q"),
-                8, Vw.limb("bq"), what="q proj")
+                8, bv("bq"), what="q proj")
     _mm_rescale(ctx, cfg, Vw.hi("wkT"), Vw.lo("wkT"), V.hi("ln1.y"),
                 V.lo("ln1.y"), (kv, d, seq), V.limb("k"), V.ranged("err_k"),
-                8, Vw.limb("bk"), what="k proj")
+                8, bv("bk"), what="k proj")
     _mm_rescale(ctx, cfg, Vw.hi("wvT"), Vw.lo("wvT"), V.hi("ln1.y"),
                 V.lo("ln1.y"), (kv, d, seq), V.limb("v"), V.ranged("err_v"),
-                8, Vw.limb("bv"), what="v proj")
+                8, bv("bv"), what="v proj")
+
+    # ---- RoPE (llama) ----
+    q_name, k_name = ("qr", "kr") if cfg.family == "llama" else ("q", "k")
+    if cfg.family == "llama":
+        _rope_argument(ctx, cfg, V)
 
     # ---- attention scores ----
     m_mult = Q.score_mult(dh)
     for h in range(H):
-        _score_mm(ctx, cfg, V, "q", "k", h, h // group, m_mult)
+        _score_mm(ctx, cfg, V, q_name, k_name, h, h // group, m_mult)
 
     # ---- softmax relations (batched over heads) ----
     mask_pub = C.Public(tuple(cfg.causal_mask.reshape(-1).tolist()), "mask")
@@ -547,20 +667,31 @@ def block_argument(ctx, cfg: BlockCfg, V: Views, Vw: Views,
     # ---- output projection + residual ----
     _mm_rescale(ctx, cfg, Vw.hi("woT"), Vw.lo("woT"), V.hi("O"), V.lo("O"),
                 (d, qd, seq), V.limb("proj"), V.ranged("err_proj"), 8,
-                Vw.limb("bo"), what="o proj")
+                bv("bo"), what="o proj")
     C.g_lin_relation(ctx, [(1, V.limb("hmid")), (-1, x_view),
                            (-1, V.limb("proj"))], 0, "residual 1",
                      log_n=log_d + log_seq)
 
-    _ln_argument(ctx, cfg, V, Vw, "ln2", V.limb("hmid"), "g2", "be2")
+    _ln_argument(ctx, cfg, V, Vw, "ln2", V.limb("hmid"), "g2",
+                 "be2" if bias else None)
 
     # ---- MLP ----
     _mm_rescale(ctx, cfg, Vw.hi("w1T"), Vw.lo("w1T"), V.hi("ln2.y"),
                 V.lo("ln2.y"), (ff, d, seq), V.limb("gidx"),
-                V.ranged("err_gidx"), 4, Vw.limb("b1f"), what="fc1")
-    _mm_rescale(ctx, cfg, Vw.hi("w2T"), Vw.lo("w2T"), V.hi("gout"),
-                V.lo("gout"), (d, ff, seq), V.limb("f2"),
-                V.ranged("err_f2"), 8, Vw.limb("b2f"), what="fc2")
+                V.ranged("err_gidx"), 4, bv("b1f"), what="fc1")
+    mlp_mid = "gout"
+    if cfg.family == "llama":
+        _mm_rescale(ctx, cfg, Vw.hi("w3T"), Vw.lo("w3T"), V.hi("ln2.y"),
+                    V.lo("ln2.y"), (ff, d, seq), V.limb("up"),
+                    V.ranged("err_up"), 8, None, what="fc3 up")
+        r_g = ctx.challenge_point(_log2(ff * seq))
+        acc = C.g_dot_eq(ctx, [V.limb("gout"), V.limb("up")], r_g)
+        C.g_rescale(ctx, acc, r_g, V.limb("gate"), V.ranged("err_gate"),
+                    8, 16, "silu gate")
+        mlp_mid = "gate"
+    _mm_rescale(ctx, cfg, Vw.hi("w2T"), Vw.lo("w2T"), V.hi(mlp_mid),
+                V.lo(mlp_mid), (d, ff, seq), V.limb("f2"),
+                V.ranged("err_f2"), 8, bv("b2f"), what="fc2")
     C.g_lin_relation(ctx, [(1, y_view), (-1, V.limb("hmid")),
                            (-1, V.limb("f2"))], 0, "residual 2",
                      log_n=log_d + log_seq)

@@ -65,8 +65,9 @@ class SoundnessReport:
 def layer_circuit_stats(cfg: B.BlockCfg) -> Dict[str, int]:
     """Conservative counts of soundness-relevant events per layer proof."""
     H, seq = cfg.heads, cfg.seq
-    n_matmul = 3 + 2 * H + 2
-    n_sumchecks = 9 * n_matmul + 30
+    llama = cfg.family == "llama"
+    n_matmul = 3 + 2 * H + 2 + (1 if llama else 0)
+    n_sumchecks = 9 * n_matmul + 30 + (8 * H if llama else 0)
     max_vars = max((cfg.dff_pad * cfg.seq).bit_length(),
                    (H * seq * seq).bit_length()) + 3
     return dict(n_sumchecks=n_sumchecks, max_vars=max_vars,

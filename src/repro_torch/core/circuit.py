@@ -279,8 +279,9 @@ class _Ctx:
 class ProverCtx(_Ctx):
     is_prover = True
 
-    def __init__(self, transcript, params):
+    def __init__(self, transcript, params, keep_codewords: bool = True):
         super().__init__(transcript, params)
+        self.keep_codewords = keep_codewords   # see PCS.commit
         self.tape: List = []
         self.coms: Dict[str, PCS.Commitment] = {}
         self.ints: Dict[str, np.ndarray] = {}     # committed int values
@@ -292,7 +293,8 @@ class ProverCtx(_Ctx):
         total = 1 << max((n - 1).bit_length(), 0) if n > 1 else 1
         vals = np.zeros(total, dtype=np.int64)
         vals[:n] = values
-        com = PCS.commit(F.f_from_int(vals, self.device), self.params)
+        com = PCS.commit(F.f_from_int(vals, self.device), self.params,
+                         keep_codewords=self.keep_codewords)
         self.coms[name] = com
         self.ints[name] = vals
         self._register(name, com, "int")
@@ -301,7 +303,7 @@ class ProverCtx(_Ctx):
 
     def commit_field(self, name: str, fvec: torch.Tensor, aspect: int = 0):
         """Commit a field-valued vector (already Montgomery)."""
-        com = PCS.commit(fvec, self.params, aspect)
+        com = PCS.commit(fvec, self.params, aspect, self.keep_codewords)
         self.coms[name] = com
         self._register(name, com, "field")
         self.tape.append(("root", name, com.root))

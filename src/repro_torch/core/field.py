@@ -147,11 +147,37 @@ def _f4_fold(device) -> torch.Tensor:
     return t
 
 
+F4_CHUNK = 1 << 19     # Fp4 elements per piece of a product
+
+
 def f4mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fp4 product.  Every Montgomery product is (a_i b_j mod P) R^-1, so the
     sum over the outer product is reduced once and scaled by R^-1 once:
-    sums stay < 16 * 11 * P < 2^39."""
+    sums stay < 16 * 11 * P < 2^39.  The outer product takes 80 words an
+    element, so a product of more than F4_CHUNK elements goes in pieces,
+    each read from the broadcast operands' views (never copied whole)."""
     a, b = torch.broadcast_tensors(a, b)
+    if a.numel() <= 4 * F4_CHUNK:
+        return _f4mul(a, b)
+    out = torch.empty(a.shape, dtype=I64, device=a.device)
+    _f4mul_pieces(out, a, b)
+    return out
+
+
+def _f4mul_pieces(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """out = a b in pieces along axis 0, taking each index of it apart when
+    one index alone holds more than F4_CHUNK elements."""
+    row = out[0].numel()
+    if row > 4 * F4_CHUNK:
+        for o, x, y in zip(out, a, b):
+            _f4mul_pieces(o, x, y)
+        return
+    step = 4 * F4_CHUNK // row
+    for i in range(0, out.shape[0], step):
+        out[i:i + step] = _f4mul(a[i:i + step], b[i:i + step])
+
+
+def _f4mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     t = a.unsqueeze(-1) * b.unsqueeze(-2) % P            # (..., 4, 4)
     t = t.reshape(*t.shape[:-2], 16, 1)
     c = (t * _f4_fold(a.device)).sum(-2)                 # (..., 4)

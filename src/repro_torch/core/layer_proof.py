@@ -121,7 +121,10 @@ def weight_range_proof(wt: WeightCommit, params: PCS.PCSParams,
                        name: str = "wt") -> List:
     """Standalone range proof over a committed weight vector (setup)."""
     tr = Transcript("nanozk.wt.range", wt.com.mat.device)
-    ctx = C.ProverCtx(tr, params)
+    # The LogUp helper is 4x the weights; its codewords (blowup times more)
+    # are encoded again for the opened columns, not held through the
+    # opening's sum-check (16 GiB at TinyLlama width).
+    ctx = C.ProverCtx(tr, params, keep_codewords=False)
     ctx.attach(name, wt.com, wt.ints)
     C.g_range8(ctx, name, wt.n)
     C.flush_lookups(ctx)

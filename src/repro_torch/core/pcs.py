@@ -42,7 +42,8 @@ class PCSParams:
 @dataclasses.dataclass
 class Commitment:
     mat: torch.Tensor       # (R, C) base-field message rows
-    enc: torch.Tensor       # (R, C*blowup) encoded rows
+    enc: Optional[torch.Tensor]   # (R, C*blowup) encoded rows; None: not
+                                  # kept, encoded again when opened
     tree: M.MerkleTree      # over columns of enc
     log_r: int
     log_c: int
@@ -119,13 +120,18 @@ def _pad_vec(vec: torch.Tensor, total: int) -> torch.Tensor:
     return vec if total == n else torch.nn.functional.pad(vec, (0, total - n))
 
 
-def commit(vec: torch.Tensor, params: PCSParams, aspect: int = 0) -> Commitment:
-    """vec: flat base-field Montgomery tensor; zero-padded to 2^m."""
+def commit(vec: torch.Tensor, params: PCSParams, aspect: int = 0,
+           keep_codewords: bool = True) -> Commitment:
+    """vec: flat base-field Montgomery tensor; zero-padded to 2^m.  With
+    ``keep_codewords=False`` the encoded rows are dropped once the tree is
+    built (blowup times the message's memory) and encoded again when the
+    commitment is opened."""
     log_r, log_c = shape_for(vec.shape[0], aspect)
     mat = _pad_vec(vec, 1 << (log_r + log_c)).reshape(1 << log_r, 1 << log_c)
     enc = _rs_encode(mat, params.blowup)
     tree = M.commit(enc.T.contiguous())            # leaves are columns
-    return Commitment(mat=mat, enc=enc, tree=tree, log_r=log_r, log_c=log_c)
+    return Commitment(mat=mat, enc=enc if keep_codewords else None, tree=tree,
+                      log_r=log_r, log_c=log_c)
 
 
 def commit_batch(vecs: Sequence[torch.Tensor], params: PCSParams
@@ -195,6 +201,9 @@ def _gamma_powers(gamma: torch.Tensor, k: int) -> torch.Tensor:
     return ws[:k]
 
 
+E_VEC_BATCH = 1 << 22     # eq-table elements _build_e_vec makes at once
+
+
 def _build_e_vec(n_tot: int, pts_np: Sequence[np.ndarray],
                  gamma: torch.Tensor) -> torch.Tensor:
     """e_vec = sum_i gamma^i eq(pts[i], .), built slice-wise: claims are
@@ -222,6 +231,15 @@ def _build_e_vec(n_tot: int, pts_np: Sequence[np.ndarray],
         glist = sorted(buckets[t])
         G = len(glist)
         mx = max(len(mem) for _, mem in glist)
+        if G * mx << t > E_VEC_BATCH:
+            # long slices: one eq table at a time, added in place
+            for idx, members in glist:
+                seg = e_vec[idx << t:(idx + 1) << t]
+                for i in members:
+                    tab = eq_points(F.tensor(pts_np[i][m - t:], dev))
+                    seg.add_(F.f4mul(ws_ext[i], tab)).remainder_(F.P)
+                    del tab
+            continue
         sufs = np.zeros((G, mx, t, 4), np.uint32)
         widx = np.full((G, mx), k, np.int64)   # padding -> zero weight row
         los = np.empty((G,), np.int64)
@@ -251,8 +269,9 @@ def _gamma_fold(values: Sequence[torch.Tensor], gamma: torch.Tensor
     return fsum(F.f4mul(_gamma_powers(gamma, vals.shape[0]), vals), axis=0)
 
 
-def _open_columns(com: Commitment, idx: np.ndarray):
-    cols = com.enc.T[torch.as_tensor(idx, device=com.enc.device)]
+def _open_columns(com: Commitment, idx: np.ndarray, blowup: int):
+    enc = com.enc if com.enc is not None else _rs_encode(com.mat, blowup)
+    cols = enc.T[torch.as_tensor(idx, device=enc.device)]
     return F.to_np(cols), M.batch_open(com.tree, idx)
 
 
@@ -272,8 +291,9 @@ def prove_openings(com: Commitment, points: Sequence[torch.Tensor],
     rho = transcript.challenge_f4_vec(com.mat.shape[0])      # (R, 4)
     u_prox = fsum(F.fmul(rho[:, None, :], com.mat[:, :, None]), axis=0)
     transcript.absorb(u_prox)
-    idx = transcript.challenge_indices(com.enc.shape[1], params.queries)
-    columns, paths = _open_columns(com, idx)
+    idx = transcript.challenge_indices(com.mat.shape[1] * params.blowup,
+                                       params.queries)
+    columns, paths = _open_columns(com, idx, params.blowup)
     return OpeningBundle(
         us=np.stack(us) if us else np.zeros((0, com.mat.shape[1], 4), np.uint32),
         u_prox=F.to_np(u_prox), columns=columns, paths=paths)
@@ -293,13 +313,17 @@ def _prove_openings_batched(com: Commitment, points: Sequence[torch.Tensor],
         vals = F.tensor(np.stack([np.asarray(v) for v in values]), dev)
     transcript.absorb_each(vals)
     gamma = transcript.challenge_f4()
-    m_lift = F.f4_from_base(com.mat.reshape(-1))             # (N, 4)
+    # the eq vector first: its eq tables are made while the lifted copy
+    # does not exist yet
     e_vec = _build_e_vec(com.mat.numel(), pts_np, gamma)
+    m_lift = F.f4_from_base(com.mat.reshape(-1))             # (N, 4)
     sc, pt = SC.prove([m_lift, e_vec], transcript)
+    del m_lift, e_vec
     u = K4.partial_eval_rows_mm(com.mat, pt[:com.log_r])     # (C, 4)
     transcript.absorb(u)
-    idx = transcript.challenge_indices(com.enc.shape[1], params.queries)
-    columns, paths = _open_columns(com, idx)
+    idx = transcript.challenge_indices(com.mat.shape[1] * params.blowup,
+                                       params.queries)
+    columns, paths = _open_columns(com, idx, params.blowup)
     return OpeningBundle(us=F.to_np(u)[None], u_prox=None,
                          columns=columns, paths=paths, batch_sc=sc)
 

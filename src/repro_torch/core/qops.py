@@ -1,5 +1,5 @@
 """Quantized reference ops: the exact integer semantics of the circuit
-(mirrors ``repro.core.qops`` for the gpt2 family) on int64 tensors.
+(mirrors ``repro.core.qops``) on int64 tensors.
 
 Activations are signed 16-bit fixed point with f=8 fractional bits,
 feature-major (d, seq).  Rounding is round-half-up, floor((x + 2^(s-1)) / 2^s)
@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import luts as LUTS
@@ -118,6 +119,43 @@ def q_attention_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tr["o"] = o
     tr["err_o"] = o_acc + (1 << 7) - shl(o, F8)
     return tr
+
+
+ROPE_F = 13   # cos/sin fixed-point bits (products stay < p/2)
+
+
+def rope_tables(dh: int, seq: int, base: float = 10000.0):
+    """Integer cos/sin tables (dh/2, seq) at f=ROPE_F, rotate-half
+    convention: numpy int64, computed in float64 exactly as the JAX
+    package computes them (they are public circuit constants)."""
+    half = dh // 2
+    inv_freq = base ** (-np.arange(half) / half)          # (half,)
+    ang = inv_freq[:, None] * np.arange(seq)[None, :]     # (half, seq)
+    C = np.round(np.cos(ang) * (1 << ROPE_F)).astype(np.int64)
+    Sn = np.round(np.sin(ang) * (1 << ROPE_F)).astype(np.int64)
+    return C, Sn
+
+
+def q_rope(x: torch.Tensor, C: torch.Tensor, Sn: torch.Tensor
+           ) -> Dict[str, torch.Tensor]:
+    """Rotate-half RoPE on one head, x: (dh, seq) f8; C, Sn on x's device."""
+    half = x.shape[0] // 2
+    xt, xb = x[:half], x[half:]
+    acc = torch.cat([xt * C - xb * Sn, xb * C + xt * Sn], dim=0)
+    y = assert16(rshift_round(acc, ROPE_F), "rope out")
+    err = acc + (1 << (ROPE_F - 1)) - shl(y, ROPE_F)
+    lo, hi = _minmax(err)
+    assert lo >= 0 and hi < (1 << ROPE_F)
+    return {"y": y, "err": err}
+
+
+def q_silu_gate(gate_out: torch.Tensor, up: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """LLaMA MLP gate: y = round(silu(gate) * up / 2^8); inputs f8."""
+    acc = gate_out * up
+    y = assert16(rshift_round(acc, F8), "silu gate out")
+    err = acc + (1 << 7) - shl(y, F8)
+    return {"y": y, "err": err}
 
 
 def q_act(name: str, x_acc: torch.Tensor, in_shift: int

@@ -48,8 +48,20 @@
 //   PCSParams.blowup): with every pass's first stage known, each word's
 //   index is one xor and each store offset an immediate (see `pass`).
 //   Other blowups run the instance that reads both at run time.
+// - Rows longer than 2^15 words (up to 2^20) take two launches.  On a
+//   bit-reversed row of n = 2^(15 + k) words, the first 15 DIT stages are
+//   2^k independent 2^15-point transforms on contiguous blocks, block b
+//   transforming the words at stride 2^k from offset rev_k(b) (for an
+//   encode: of the message, an encode of c / 2^k words at the same
+//   blowup), with the stage table's first 2^15 rows.  The first launch runs
+//   them as 2^k "virtual rows" a row through the 2^15 instances
+//   (SPLIT = true: the message is gathered at that stride), writing each
+//   block where it lies in the output row; the second (`top_kernel`) runs
+//   the top k stages over global memory, a thread holding the 2^k words
+//   2^15 apart, and scales an inverse transform by n^-1.
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <initializer_list>
 #include <utility>
 
 #include "field.cuh"
@@ -60,6 +72,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxR = 4;                 // stages per pass: 16 words a thread
 constexpr int kMaxLogN = 15;             // 4 n bytes a row: 2^15 words fit a block
 constexpr int kRsL = 2;                  // log2 of the PCS's default blowup
+constexpr int kMaxSplit = 5;             // long rows: 2^kMaxSplit blocks of 2^15 words
 
 // Shared-memory layouts: XOR the low five bits (the bank) with higher bits
 // of the index, inside each aligned run of 32 words.
@@ -212,11 +225,17 @@ constexpr int kPrefetch = 2;   // 16-byte message loads a thread keeps in flight
 // groups b, b + gridDim.x, ... of rows_per_block rows each, and loads the
 // next group's message (its first kPrefetch x 16 bytes a thread) into
 // registers while it transforms the current one.
-template <int LOG_N, int LL>
+//
+// SPLIT: the first launch of a long row (log_n = 15 here).  "rows" are then
+// the virtual rows, 2^split per row of 2^(15 + split) words: virtual row
+// v = r 2^split + b reads the message words b' + j 2^split of row r (b' =
+// rev_split(b)) and writes words b 2^15 .. (b + 1) 2^15 - 1 of output row r,
+// which is the v-th run of 2^15 words of the output.
+template <int LOG_N, int LL, bool SPLIT = false>
 __global__ void __launch_bounds__(kThreads, 4)
 ntt_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
            const uint2* __restrict__ tw, long rows, int log_n_arg, int L_arg,
-           int rows_per_block, int inverse, uint32_t n_inv_m) {
+           int rows_per_block, int inverse, uint32_t n_inv_m, int split) {
   extern __shared__ uint32_t sh[];
   const int log_n = LOG_N ? LOG_N : log_n_arg;
   const int L = LOG_N ? LL : L_arg;
@@ -232,7 +251,7 @@ ntt_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
   rw.n_inv_m = n_inv_m;
   // 16-byte loads when every group's run of words is 16-byte aligned (then
   // a pair never crosses a row of >= 2 words); else one word at a time
-  const bool vec = c >= 2 && (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+  const bool vec = !SPLIT && c >= 2 && (reinterpret_cast<uintptr_t>(in) & 15) == 0;
   // The group's word e of the thread's t-th pair of message words.  The
   // plain transform stores word i of a row at position rev(i): there lane l
   // of a warp takes a pair whose top five index bits are l, so that the
@@ -291,8 +310,18 @@ ntt_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
       }
       done = total & ~1;
     }
-    for (int e = done + threadIdx.x; e < total; e += kThreads)
-      put(e, static_cast<uint32_t>(__ldg(gin + e)));
+    if constexpr (SPLIT) {               // the message at stride 2^split
+      const int bmask = (1 << split) - 1;
+      for (int e = threadIdx.x; e < total; e += kThreads) {
+        const long v = row0 + (e >> lc);
+        const int64_t* rin = in + ((v >> split) << (lc + split))
+                             + rev_bits(static_cast<int>(v & bmask), split);
+        put(e, static_cast<uint32_t>(__ldg(rin + (static_cast<long>(e & (c - 1)) << split))));
+      }
+    } else {
+      for (int e = done + threadIdx.x; e < total; e += kThreads)
+        put(e, static_cast<uint32_t>(__ldg(gin + e)));
+    }
     __syncthreads();
     if (vec && g + gridDim.x < groups) prefetch(g + gridDim.x);   // in flight during the passes
 
@@ -307,8 +336,49 @@ ntt_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
   }
 }
 
+// The top K stages of a long row (second launch), in place: thread (r, i)
+// holds words i + t 2^15 of row r, t < 2^K, and runs stages 15 .. 14 + K on
+// them in registers (stage 15 + s pairs t and t | 2^s with the twiddle
+// row 2^(15 + s) + i + (t mod 2^s) 2^15); an inverse is scaled by n^-1.
+// Consecutive threads take consecutive i: every load and store coalesces.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+top_kernel(int64_t* __restrict__ x, const uint2* __restrict__ tw, long rows,
+           int inverse, uint32_t n_inv_m) {
+  constexpr int T = 1 << K;
+  constexpr int S = kMaxLogN;
+  const long total = rows << S;
+  for (long t = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; t < total;
+       t += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int i = static_cast<int>(t & ((1 << S) - 1));
+    int64_t* p = x + ((t >> S) << (S + K)) + i;
+    uint32_t v[T];
+#pragma unroll
+    for (int b = 0; b < T; ++b) v[b] = static_cast<uint32_t>(p[static_cast<long>(b) << S]);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+#pragma unroll
+      for (int bl = 0; bl < (1 << s); ++bl) {
+        const uint2 w = __ldg(tw + (1 << (S + s)) + (bl << S) + i);
+#pragma unroll
+        for (int bh = 0; bh < (T >> (s + 1)); ++bh) {
+          const int b = bl | (bh << (s + 1));
+          const uint32_t lo = v[b];
+          const uint32_t y = mul_shoup(v[b | (1 << s)], w);
+          v[b] = bb::add(lo, y);
+          v[b | (1 << s)] = bb::sub(lo, y);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < T; ++b)
+      p[static_cast<long>(b) << S] = static_cast<int64_t>(inverse ? bb::mul(v[b], n_inv_m) : v[b]);
+  }
+}
+
 using Kern = void (*)(const int64_t*, int64_t*, const uint2*, long, int, int,
-                     int, int, uint32_t);
+                     int, int, uint32_t, int);
+using TopKern = void (*)(int64_t*, const uint2*, long, int, uint32_t);
 
 // t[log_n] = the instance with (log_n, LL) fixed, for every log_n in
 // (LL, kMaxLogN]; the run-time instance elsewhere.
@@ -317,14 +387,26 @@ void fill(Kern* t, std::integer_sequence<int, I...>) {
   ((t[I] = ntt_kernel<(I > LL ? I : 0), (I > LL ? LL : 0)>), ...);
 }
 
+template <int... I>
+void fill_top(TopKern* t, std::integer_sequence<int, I...>) {
+  ((t[I] = top_kernel<(I > 0 ? I : 1)>), ...);
+}
+
 struct Instances {
   Kern plain[kMaxLogN + 1], rs[kMaxLogN + 1];
+  TopKern top[kMaxSplit + 1];                  // top[k], 1 <= k <= kMaxSplit
   Instances() {
     fill<0>(plain, std::make_integer_sequence<int, kMaxLogN + 1>());
     fill<kRsL>(rs, std::make_integer_sequence<int, kMaxLogN + 1>());
+    fill_top(top, std::make_integer_sequence<int, kMaxSplit + 1>());
   }
   Kern pick(int log_n, int L) const {          // 1 <= log_n <= kMaxLogN
     return L == 0 ? plain[log_n] : L == kRsL ? rs[log_n] : ntt_kernel<0, 0>;
+  }
+  // the first launch of a long row: a 2^15 instance that gathers
+  Kern pick_split(int L) const {
+    return L == 0 ? ntt_kernel<kMaxLogN, 0, true>
+         : L == kRsL ? ntt_kernel<kMaxLogN, kRsL, true> : ntt_kernel<0, 0, true>;
   }
 };
 
@@ -348,6 +430,8 @@ int ntt_set_max_smem() {
   const int bytes = ntt_max_shared_bytes();
   const Instances& t = instances();
   cudaError_t e = cudaFuncSetAttribute(ntt_kernel<0, 0>, a, bytes);
+  for (int L : {0, kRsL, 1})                  // 1: any other, the run-time instance
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(t.pick_split(L), a, bytes);
   for (int i = 0; i <= kMaxLogN && e == cudaSuccess; ++i) {
     e = cudaFuncSetAttribute(t.plain[i], a, bytes);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(t.rs[i], a, bytes);
@@ -385,7 +469,49 @@ int ntt_rows(const int64_t* in, int64_t* out, const uint32_t* tw, long rows,
   long grid = static_cast<long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > groups) grid = groups;
   kern<<<static_cast<unsigned>(grid), kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, reinterpret_cast<const uint2*>(tw), rows, log_n, L, rows_per_block, inverse, n_inv_m);
+      in, out, reinterpret_cast<const uint2*>(tw), rows, log_n, L, rows_per_block, inverse, n_inv_m,
+      0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Long rows, 2^15 < n = 2^log_n <= 2^(15 + kMaxSplit): rows x (n >> L)
+// words in, rows x n out, in two launches (see the header).  tw: the
+// stage-major table of n {w, w'} pairs; the first launch reads its first
+// 2^15 rows.  An encode's message must hold at least 2^(log_n - 15) words.
+int ntt_rows_long(const int64_t* in, int64_t* out, const uint32_t* tw, long rows,
+                  int log_n, int L, int inverse, uint32_t n_inv_m, void* stream) {
+  if (rows == 0) return 0;
+  const int k = log_n - kMaxLogN;
+  if (k < 1 || k > kMaxSplit || L < 0 || L > kMaxLogN || (inverse && L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t m = static_cast<size_t>(1) << kMaxLogN;
+  const size_t shmem = sizeof(uint32_t) * (m + (L ? m >> L : 0));
+  if (shmem > static_cast<size_t>(ntt_max_shared_bytes()))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Instances& t = instances();
+  const Kern kern = t.pick_split(L);
+  const TopKern top = t.top[k];
+  int dev = 0, sms = 0, per_sm = 0, top_per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, shmem)) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&top_per_sm, top, kThreads, 0)) != cudaSuccess)
+    return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long vrows = rows << k;
+  long grid = static_cast<long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (grid > vrows) grid = vrows;
+  kern<<<static_cast<unsigned>(grid), kThreads, shmem, st>>>(
+      in, out, reinterpret_cast<const uint2*>(tw), vrows, kMaxLogN, L, 1, 0, n_inv_m, k);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const long blocks = ((rows << kMaxLogN) + kThreads - 1) / kThreads;
+  long tgrid = static_cast<long>(sms) * (top_per_sm > 0 ? top_per_sm : 1);
+  if (tgrid > blocks) tgrid = blocks;
+  top<<<static_cast<unsigned>(tgrid), kThreads, 0, st>>>(
+      out, reinterpret_cast<const uint2*>(tw), rows, inverse, n_inv_m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,14 +8,18 @@ with zeros to ``c * blowup`` words, but the kernel reads only the c message
 words (on a bit-reversed zero-padded row the first log2(blowup) stages
 only copy each word to ``blowup`` places).  Both entries run the one
 kernel: passes of up to four butterfly stages in registers, shared memory
-between passes.  On the card a row of n words takes 4 n bytes of shared
-memory for the plain transform and 4 (n + c) for an encode (its message is
-staged apart): n <= 32768 for both; longer rows raise.
+between passes.  On the card a block transforms a row of n words in 4 n
+bytes of shared memory for the plain transform and 4 (n + c) for an encode
+(its message is staged apart), so rows up to 2^15 words take one launch.
+A longer row, up to 2^20 words, takes two (``plan``): its first 15 stages
+as 2^15-word blocks gathered at a stride, then the top stages over global
+memory.  Longer rows raise.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,10 +31,14 @@ from repro_torch.core import ntt as NTT
 from . import _build
 
 launches = 0
+long_launches = 0             # the part of ``launches`` made on rows > 2^15
 # calls that reached the card, by (rows, n, c): c < n for an RS encode
 launch_shapes: collections.Counter = collections.Counter()
 MAX_SHARED_BYTES = 232448     # dynamic shared memory of one sm_90 block
 BLOCK_WORDS = 4096            # output words per block: 16 a thread of 256
+ROW_LOG_N = 15                # the longest row one block transforms
+MAX_SPLIT = 5                 # a long row: at most 2^5 blocks of 2^15 words
+MAX_LOG_N = ROW_LOG_N + MAX_SPLIT
 _TW: dict = {}
 _READY: set = set()
 
@@ -103,6 +111,10 @@ def _lib(device) -> ctypes.CDLL:
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_uint32, vp]
         lib.ntt_rows.restype = ctypes.c_int
+        lib.ntt_rows_long.argtypes = [vp, vp, vp, ctypes.c_long, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_uint32, vp]
+        lib.ntt_rows_long.restype = ctypes.c_int
         lib.ntt_set_max_smem.restype = ctypes.c_int
         with torch.cuda.device(device):
             _build.check(lib.ntt_set_max_smem(), "ntt_set_max_smem")
@@ -120,25 +132,64 @@ def rows_per_block(n: int) -> int:
     return max(1, BLOCK_WORDS // n)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    split: int            # k: a row is 2^k blocks of 2^15 words (0: one block)
+    launches: int         # kernel launches per call
+    rows_per_block: int   # rows (virtual rows of 2^15 words if split) a block
+    shared_bytes: int     # dynamic shared memory of a block
+
+
+def plan(n: int, c: int) -> Plan:
+    """How the card transforms rows of n words read from c (c = n for the
+    plain transform, c < n an RS encode).  Up to 2^15 words: one launch,
+    short rows packed several to a block.  Longer: two launches, the first
+    running each row as 2^k blocks of 2^15 words (each reads c / 2^k
+    message words at stride 2^k), the second the top k stages.  Raises
+    where no block's shared memory holds the row, past 2^20 words, or for a
+    message shorter than 2^k words."""
+    log_n = n.bit_length() - 1
+    split = max(0, log_n - ROW_LOG_N)
+    if split > MAX_SPLIT:
+        raise ValueError(f"NTT row of {n} words exceeds the longest row the "
+                         f"kernel takes (2^{MAX_LOG_N} words)")
+    if c >> split == 0:
+        raise ValueError(f"RS encode of {c} words into {n}: the message is "
+                         f"shorter than the {1 << split} blocks of a row")
+    m, cm = n >> split, c >> split
+    rpb = rows_per_block(m)
+    shared = 4 * (m + (cm if c < n else 0)) * rpb
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"NTT row of {n} words ({c} read) exceeds the "
+                         "shared-memory limit")
+    return Plan(split=split, launches=1 + (split > 0), rows_per_block=rpb,
+                shared_bytes=shared)
+
+
 def _launch(x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
     """rows x c words in (c = n / 2^L), rows x n out, on the card."""
     _build.require_cuda_int64(x)
     rows, c = x.shape
     log_n = n.bit_length() - 1
     L = log_n - (c.bit_length() - 1)
-    rpb = rows_per_block(n)
-    if 4 * (n + (c if c < n else 0)) * rpb > MAX_SHARED_BYTES:
-        raise ValueError(f"NTT row of {n} words ({c} read) exceeds the "
-                         "shared-memory limit")
+    pl = plan(n, c)
     tw = _stage_table(n, inverse, x.device)
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
-    status = _lib(x.device).ntt_rows(
-        _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, log_n, L, rpb,
-        int(inverse), _n_inv(n), _build.stream_ptr(x))
+    lib = _lib(x.device)
+    if pl.split:
+        status = lib.ntt_rows_long(
+            _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, log_n, L,
+            int(inverse), _n_inv(n), _build.stream_ptr(x))
+    else:
+        status = lib.ntt_rows(
+            _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, log_n, L,
+            pl.rows_per_block, int(inverse), _n_inv(n), _build.stream_ptr(x))
     _build.check(status, "ntt_rows")
-    global launches
+    global launches, long_launches
     if rows:
-        launches += 1
+        launches += pl.launches
+        if pl.split:
+            long_launches += pl.launches
         launch_shapes[(rows, n, c)] += 1
     return out
 

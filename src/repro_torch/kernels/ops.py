@@ -107,3 +107,16 @@ ANALYSIS_ENTRIES = {
     "partial_eval_cols_mm": _ae(lambda m, r: partial_eval_cols_mm(m, r),
                                 ("fp", (8, 8)), ("fp", (3, 4))),
 }
+
+# K2's rows longer than 2^15 words (two launches, ``ntt_kernel.plan``):
+# part (c) of the ranges pass runs these through the kernel against the
+# plain version, with the edge words, as it runs every entry above; the
+# plain version is shape-generic and (b) proves it at the short shape.
+# Both transforms at 2^16 words, the RS encode at blowup 4 into 2^17.
+LONG_ROW_ENTRIES = {
+    "ntt_long": _ae(lambda x: ntt(x), ("fp", (2, 1 << 16))),
+    "ntt_long_inverse": _ae(lambda x: ntt(x, inverse=True),
+                            ("fp", (2, 1 << 16))),
+    "rs_encode_long": _ae(lambda x: _ntt.rs_encode_rows(x, 4),
+                          ("fp", (2, 1 << 15))),
+}

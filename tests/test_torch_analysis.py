@@ -119,6 +119,19 @@ def test_entry_registry_matches_jax():
         assert OPS.ANALYSIS_ENTRIES[k]["args"] == JOPS.ANALYSIS_ENTRIES[k]["args"]
 
 
+@pytest.mark.parametrize("name", sorted(OPS.LONG_ROW_ENTRIES))
+def test_long_row_entries_trace_clean(name):
+    """K2's long-row entries (part (c) runs them through the kernel's
+    two-launch path): their plain version at those shapes proves clean,
+    and their shapes are past the one-launch rows."""
+    from repro_torch.kernels import ntt_kernel as K2
+    spec = OPS.LONG_ROW_ENTRIES[name]
+    assert analyze_fn(name, spec["fn"], spec["args"], spec["out"]) == []
+    out = spec["fn"](*[torch.zeros(shape, dtype=torch.int64)
+                       for _, shape in spec["args"]])
+    assert K2.plan(out.shape[1], spec["args"][0][1][1]).launches == 2
+
+
 def test_ranges_registry_covers_ops_entry_points():
     entries = OPS.ANALYSIS_ENTRIES
     for nm in ranges._covered_ops_entry_points():

@@ -122,9 +122,39 @@ def test_k2_rs_encode(dev):
     for c, blowup in ((1 << 13, 4), (1 << 12, 8)):
         x = _words(c + blowup, (2, c), dev)
         assert _same(K2.rs_encode_rows(x, blowup), K2.rs_encode_rows_plain(x, blowup))
-    x = _words(16, (2, 1 << 16), dev)
+    x = _words(21, (1, 1 << 21), dev)      # past the longest row (2^20)
     with pytest.raises(ValueError):
         K2.ntt_rows(x)
+
+
+def test_k2_long_rows(dev):
+    """Rows of 2^16 .. 2^20 words (two launches: 2^15-word blocks gathered
+    at a stride, then the top stages) against the plain version: both
+    transforms, the RS encode at blowups 4 (the weight, helper and
+    verifier rows of a TinyLlama-width layer), 2 and 8, edge words
+    planted, a single row and an odd row count; then 300 and 161 rows, so
+    the first launch's persistent blocks and the top stages' grid-stride
+    loop each take several turns.  Both launches count as long-row ones."""
+    from repro_torch.kernels import ntt_kernel as K2
+    for lg, rows in ((16, 3), (17, 3), (18, 1), (20, 1), (16, 300), (17, 161)):
+        n = 1 << lg
+        x = _words(lg + rows, (rows, n), dev)
+        for inv in (False, True):
+            before, long_before = K2.launches, K2.long_launches
+            got = K2.ntt_rows(x, inv)
+            assert K2.launches - before == 2
+            assert K2.long_launches - long_before == 2
+            assert _same(got, K2.ntt_rows_plain(x, inv)), (lg, rows, inv)
+        for blowup in (2, 4, 8):
+            msg = _words(lg + blowup + rows, (rows, n // blowup), dev)
+            assert _same(K2.rs_encode_rows(msg, blowup),
+                         K2.rs_encode_rows_plain(msg, blowup)), (lg, rows, blowup)
+    msg = _words(5, (5, 1 << 14), dev)      # the verifier's Fp4 row: 4 + 1 rows
+    long_before = K2.long_launches
+    assert _same(K2.rs_encode_rows(msg, 4), K2.rs_encode_rows_plain(msg, 4))
+    short = _words(6, (5, 1 << 13), dev)    # 2^15 words: one launch, not long
+    assert _same(K2.rs_encode_rows(short, 4), K2.rs_encode_rows_plain(short, 4))
+    assert K2.long_launches - long_before == 2
 
 
 def test_k3_sumcheck_rounds(dev):

@@ -72,6 +72,28 @@ def test_f4mul(ab4):
     _eq(JF.f4mul(jnp.asarray(a), jnp.asarray(b)), F.f4mul(_t(a), _t(b)))
 
 
+@pytest.mark.parametrize("lead", [(), (3,), "weight", "column"])
+def test_f4mul_in_pieces(ab4, monkeypatch, lead):
+    """A product longer than F4_CHUNK elements, taken piece by piece (here
+    pieces of 999, the last one short; a broadcast operand among them: one
+    Fp4 weight against a table as the eq vector's, a (1, 4) factor as
+    eq_points', a row against a stack), equals the JAX package's."""
+    a, b = ab4
+    monkeypatch.setattr(F, "F4_CHUNK", 999)
+    if lead == (3,):
+        a3 = a[:3000].reshape(3, 1000, 4)
+        want = JF.f4mul(jnp.asarray(a3), jnp.asarray(b[:1000]))
+        _eq(want, F.f4mul(_t(a3), _t(b[:1000])))
+    elif lead == "weight":
+        _eq(JF.f4mul(jnp.asarray(b[7]), jnp.asarray(a)), F.f4mul(_t(b[7]), _t(a)))
+    elif lead == "column":
+        _eq(JF.f4mul(jnp.asarray(a), jnp.asarray(b[3:4])),
+            F.f4mul(_t(a), _t(b[3:4])))
+    else:
+        _eq(JF.f4mul(jnp.asarray(a), jnp.asarray(b)), F.f4mul(_t(a), _t(b)))
+        _eq(JF.f4inv(jnp.asarray(a[:2000])), F.f4inv(_t(a[:2000])))
+
+
 def test_f4inv(ab4):
     a, _ = ab4
     _eq(JF.f4inv(jnp.asarray(a[:2000])), F.f4inv(_t(a[:2000])))

@@ -3,6 +3,7 @@ plans, Merkle trees and PCS commitments of repro_torch against the JAX
 package, exact equality."""
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -86,6 +87,37 @@ def test_pcs_commit_and_commit_batch_roots(params):
                       PCS.commit_batch([_t(v) for v in vecs], tp)):
         assert np.array_equal(jc.root, tc.root)
         assert np.array_equal(np.asarray(jc.enc), F.to_np(tc.enc))
+
+
+@pytest.mark.parametrize("n_points", [1, 3])
+def test_pcs_openings_without_kept_codewords(params, n_points):
+    """A commitment that drops its codewords once its tree is built (the
+    setup's LogUp helper) has the same root and opens to the same bundle,
+    its queried columns encoded again, as one that keeps them; the
+    transcripts end in the same state."""
+    from repro_torch.core.transcript import Transcript
+    _, tp = params
+    vec = _t(_words(21, (1000,)))
+    kept = PCS.commit(vec, tp)
+    lean = PCS.commit(vec, tp, keep_codewords=False)
+    assert lean.enc is None and kept.enc is not None
+    assert np.array_equal(kept.root, lean.root)
+    m = kept.log_r + kept.log_c
+    pts = [_t(_words(30 + i, (m, 4))) for i in range(n_points)]
+    bundles, states = [], []
+    for com in (kept, lean):
+        tr = Transcript("open", "cpu")
+        bundles.append(PCS.prove_openings(com, pts, tr, tp))
+        states.append(F.to_np(tr.state))
+    a, b = bundles
+    assert np.array_equal(states[0], states[1])
+    assert np.array_equal(a.us, b.us) and np.array_equal(a.columns, b.columns)
+    assert (a.u_prox is None) == (b.u_prox is None)
+    if a.u_prox is not None:
+        assert np.array_equal(a.u_prox, b.u_prox)
+    assert [p.index for p in a.paths] == [p.index for p in b.paths]
+    assert all(np.array_equal(p.siblings, q.siblings)
+               for p, q in zip(a.paths, b.paths))
 
 
 def test_k4_plain_matches_modmatmul_ref():
@@ -197,3 +229,121 @@ def test_k4_plan_fills_the_card_at_the_attest_shapes():
     for shape in (_WEIGHT_K4, _HELPER_K4):
         assert shape in _ATTEST_K4
         assert K4.plan(*shape).blocks >= 132
+
+
+def test_k2_plan_single_launch_up_to_2_15():
+    """Rows up to 2^15 words keep one launch and their packing; the attest
+    shapes at d=128 among them."""
+    for (rows, n, c) in _ATTEST_K2:
+        pl = K2.plan(n, c)
+        assert (pl.split, pl.launches) == (0, 1)
+        assert pl.rows_per_block == K2.rows_per_block(n)
+    for lg in range(1, 16):
+        n = 1 << lg
+        for c in {n, max(1, n // 4)}:
+            pl = K2.plan(n, c)
+            assert pl.split == 0 and pl.launches == 1
+            assert pl.shared_bytes <= K2.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("lg", [16, 17, 18, 20])
+def test_k2_plan_long_rows(lg):
+    """Longer rows: 2^k blocks of 2^15 words and a second launch for the
+    top k stages; past 2^20 words, or a message shorter than 2^k, raises."""
+    n = 1 << lg
+    for c in (n, n // 4, n // 8):
+        pl = K2.plan(n, c)
+        assert pl.split == lg - 15 and pl.launches == 2
+        assert pl.rows_per_block == 1
+        assert pl.shared_bytes == 4 * ((1 << 15) + ((c >> pl.split) if c < n else 0))
+        assert pl.shared_bytes <= K2.MAX_SHARED_BYTES
+    with pytest.raises(ValueError):
+        K2.plan(n, (1 << (lg - 15)) // 2)
+    with pytest.raises(ValueError):
+        K2.plan(1 << 21, 1 << 21)
+
+
+def _bitrev_t(n):
+    return torch.as_tensor(NTT._bitrev(n))
+
+
+def _dit(x, W, inverse_scale=None):
+    """Every DIT stage of a natural-order (rows, m) array with the stage
+    table W ((>= m, 2) u32 plain residues): bit-reverse, then stage s pairs
+    positions 2^s apart with twiddle W[2^s + j]."""
+    rows, m = x.shape
+    x = x[:, _bitrev_t(m)]
+    Wt = torch.as_tensor(W[:, 0].astype(np.int64))
+    for s in range(m.bit_length() - 1):
+        h = 1 << s
+        xe = x.reshape(rows, m // (2 * h), 2, h)
+        lo, hi = xe[:, :, 0, :], xe[:, :, 1, :]
+        t = hi * Wt[h:2 * h] % P
+        x = torch.stack([(lo + t) % P, (lo - t) % P], dim=2).reshape(rows, m)
+    return x
+
+
+def _long_row_schedule(msg, n, inverse=False):
+    """K2's two launches for a long row, transliterated to torch: launch 1
+    takes virtual row v = r 2^k + b to be the words b' + j 2^k of row r's
+    (zero-padded) message, b' = rev_k(b), transforms it as a 2^15-word row
+    with the first 2^15 rows of the n-word stage table (no n^-1 scaling)
+    and writes it to words b 2^15 .. of output row r; launch 2 runs stages
+    15 .. 14 + k on the words 2^15 apart, then scales an inverse."""
+    rows, c = msg.shape
+    pl = K2.plan(n, c)
+    k, m = pl.split, n >> pl.split
+    B = 1 << k
+    W = K2.stage_table(n, inverse)
+    sub = msg.reshape(rows, c // B, B)[:, :, _bitrev_t(B)]
+    sub = sub.transpose(1, 2).reshape(rows * B, c // B)
+    sub = torch.nn.functional.pad(sub, (0, m - c // B))      # the encode's copies
+    y = _dit(sub, W).reshape(rows, B, m)
+    Wt = torch.as_tensor(W[:, 0].astype(np.int64))
+    for s in range(k):
+        h = 1 << s
+        ye = y.reshape(rows, B // (2 * h), 2, h, m)
+        lo, hi = ye[:, :, 0], ye[:, :, 1]
+        w = Wt[(m << s) + torch.arange(h * m)].reshape(h, m)
+        t = hi * w % P
+        y = torch.stack([(lo + t) % P, (lo - t) % P], dim=2).reshape(rows, B, m)
+    y = y.reshape(rows, n)
+    if inverse:
+        y = F.fmul(y, F.mont_int(pow(n, P - 2, P)))
+    return y
+
+
+@pytest.mark.parametrize("lg", [16, 17])
+def test_k2_long_row_schedule_matches_plain(lg):
+    """The long-row schedule equals the plain transform both ways and the
+    RS encode at blowups 4 and 8, word for word."""
+    n = 1 << lg
+    x = _t(_words(lg, (1, n)))
+    for inv in (False, True):
+        assert torch.equal(_long_row_schedule(x, n, inv),
+                           K2.ntt_rows_plain(x, inv))
+    for blowup in (4, 8):
+        msg = _t(_words(lg + blowup, (2, n // blowup)))
+        assert torch.equal(_long_row_schedule(msg, n),
+                           K2.rs_encode_rows_plain(msg, blowup))
+
+
+@pytest.mark.parametrize("batch", [1 << 22, 8])
+def test_build_e_vec_matches_jax(monkeypatch, batch):
+    """The gamma-folded eq vector of claims on slices of several lengths
+    (two on one slice, one on the whole vector) equals the JAX package's,
+    batched and, with the batch bound below every bucket, one eq table at
+    a time added in place (the path of a TinyLlama-width commitment)."""
+    from repro_torch.core import circuit as CC
+    monkeypatch.setattr(PCS, "E_VEC_BATCH", batch)
+    m = 6
+    rng = np.random.default_rng(9)
+    pts = []
+    for npfx, idx in ((2, 1), (2, 1), (3, 5), (0, 0), (2, 3)):
+        suf = _words(int(rng.integers(1 << 20)), (m - npfx, 4))
+        pfx = CC._const_bits_point(idx, npfx).astype(np.uint32)
+        pts.append(np.concatenate([pfx, suf]).astype(np.uint32))
+    gamma = _words(77, (4,))
+    want = np.asarray(JPCS._build_e_vec(1 << m, pts, jnp.asarray(gamma)))
+    got = F.to_np(PCS._build_e_vec(1 << m, pts, _t(gamma)))
+    assert np.array_equal(want, got)

@@ -55,9 +55,13 @@ def test_weights_and_forward_match(fields):
     assert sorted(jtr) == sorted(tr)
     for k in jtr:
         assert np.array_equal(np.asarray(jtr[k]), tr[k].numpy()), k
-    with pytest.raises(NotImplementedError):
-        B.BlockCfg(family="llama", d=16, dff=64, heads=2, kv_heads=1, dh=8,
-                   seq=8)
+    # the llama family is ported (tests/test_torch_llama.py): its config
+    # builds with the JAX package's norm, activation and bias choices
+    llama = dict(family="llama", d=16, dff=64, heads=2, kv_heads=1, dh=8,
+                 seq=8)
+    lc, jlc = B.BlockCfg(**llama), JB.BlockCfg(**llama)
+    assert (lc.ln_kind, lc.act, lc.has_bias) == \
+        (jlc.ln_kind, jlc.act, jlc.has_bias) == ("rmsnorm", "silu", False)
 
 
 def test_lut_digests_and_soundness_bound():
