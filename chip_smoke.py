@@ -43,7 +43,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ms; its K2 and K4 calls are counted by shape and must be the
              shapes k2k4 times (ATTEST_K2, ATTEST_K4).  The first attest's
              eq-vector builds are replayed batched and one table at a
-             time (time_e_vec): equal words, the two times.
+             time (time_e_vec): equal words, the two times.  Then 2 of the
+             queries again, one attest each at ProofService's default
+             worker count (2 threads, the round batcher on): bytes equal,
+             seconds against the serial ones, the batcher's counters and
+             its claims' waits.
 6. analysis — the soundness analysis in-process on the card
              (``python -m repro_torch.analysis --all --mutants``): zero
              findings, every kernel equal to its plain version on edge
@@ -76,11 +80,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
              llama path's shapes and holds it against the plain version
              at 512 rows.
 
-Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and the final
-``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
+8. gateway — the serving tier on the serve phase's chain: two clients
+             each send 4 queries at once (one connection a query) to an
+             AttestationGateway (windows of up to 4) over
+             ProofService(workers=2), on a socket on 127.0.0.1; each
+             request stream-verifies as its chunks arrive.  Every
+             attestation's v2 bytes (prove_seconds set to 0) must equal a
+             serial workers=1 attest of its query.  Per window: size, the
+             round batcher's batched claims, waves and their (d, n,
+             claims), its flushes and the seconds its claims waited for
+             them (the straggler timeout's apart), K3 launches against the
+             serial sum, seconds; per
+             query: verify seconds.  Some claims must share a K3 call and
+             K3 launches per query must fall below serial.
+   k3batch — K3 at every (d, n, claims) those waves met, padded to a power
+             of two with zero claims and zero states as the batcher pads
+             them: the real rows equal the plain version and per-claim
+             K = 1 launches word for word; the most frequent shape timed.
+9. process — 3 attests on ProofService(workers=2, backend="process"):
+             bytes equal to the serial ones; the first attest's seconds
+             apart from the warm ones; each job's pickled payload bytes
+             (they must stay below the weight commitment's device bytes:
+             tensors cross as IPC handles) and each child's allocated
+             device bytes once its payload is in; the children's kernel
+             launches come back with their jobs.  Once the service is
+             closed the parent's allocated bytes must be back where they
+             were before it (the workers released all they were sent).
+10. llama_batch — on the llama phase's weights and commitments:
+             attest_many of 2 queries on 2 threads, then one attest on 2
+             worker processes, bytes equal to the llama phase's serial
+             attests; peak device memory by stage in the parent and in
+             each child; the parent's allocation back at its baseline
+             once the process-backed service is closed.
+
+Then one ``{"kernels": [...]}`` line (K3's multi-claim calls as a row of
+their own), the nvidia-smi line, and the final ``{"ok": true, "device":
+{...}}`` line.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
+import inspect
 import json
 import os
 import subprocess
@@ -153,6 +193,21 @@ LLAMA_ATTESTS = 2              # at budget 1.0; then one Fisher-selected
 LLAMA_FISHER_BUDGET = 0.5
 LLAMA_FISHER_RTOL = 1e-5       # card against CPU, as tests/test_torch_fisher.py
 LLAMA_VOCAB = 64               # the Fisher function's readout classes
+
+# The serving tier on the served d=128 chain: 2 attests at ProofService's
+# default worker count; two clients each send 4 queries at once
+# (serve_query(0..7), one connection per query) through a gateway over
+# ProofService(workers=2), windows of up to 4; the process backend answers
+# 3 attests on 2 worker processes; the llama chain answers 2 queries in one
+# attest_many window on 2 threads, then 1 attest on 2 worker processes.
+DEFAULT_WORKER_ATTESTS = 2
+GATEWAY_CLIENTS = 2
+GATEWAY_QUERIES_PER_CLIENT = 4
+GATEWAY_MAX_BATCH = 4
+GATEWAY_WINDOW_SECONDS = 0.5
+SERVE_WORKERS = 2
+PROCESS_ATTESTS = 3
+LLAMA_BATCH = 2
 
 
 def emit(obj) -> None:
@@ -367,6 +422,13 @@ def check_kernels(dev, shapes, gen):
             k3_case(d, 1, n)
     for d in (2, 3):
         k3_case(d, 1, 1024)
+    # K claims padded as the round batcher pads them (K = 2 at the aux and
+    # weight lengths, 3 real claims padded to K = 4 at n = 1024); the
+    # shapes the gateway phase's waves meet are checked after it (k3batch)
+    for d, n, k in ((2, n_aux, 2), (3, n_aux, 2), (3, 1024, 3), (2, 1024, 3),
+                    (2, R * C, 2)):
+        e = k3_padded_check(gen, dev, d, n, k)
+        errs["sumcheck_round"] = max(errs["sumcheck_round"], e)
     fs, sts = k3_case(2, 1, R * C)
     rec["sumcheck_round"] = dict(
         ms=gpu_ms(lambda: K3.prove_rounds(fs, sts)),
@@ -428,16 +490,51 @@ def check_kernels(dev, shapes, gen):
     return rec
 
 
-def k3_bound(d: int, n: int):
-    """Bound of one prove_rounds call (K = 1): read d n Fp4 factor words and
-    the state, write g, c, the finals and the state; n - 1 pairs over all
-    rounds, each with (d + 1)(d - 1) + d Fp4 products, and the sponge's
-    permutations."""
+def k3_padded(gen, dev, d: int, n: int, k: int):
+    """k random claims (edge words planted) padded to a power of two with
+    all-zero claims and zero states, as the round batcher pads them."""
+    import torch
+    kp = 1 << max(k - 1, 0).bit_length()
+    fs = [torch.cat([rand_words(gen, (k, n, 4), dev),
+                     torch.zeros((kp - k, n, 4), dtype=torch.int64, device=dev)])
+          for _ in range(d)]
+    sts = torch.cat([rand_words(gen, (k, 16), dev),
+                     torch.zeros((kp - k, 16), dtype=torch.int64, device=dev)])
+    return fs, sts
+
+
+def k3_padded_check(gen, dev, d: int, n: int, k: int, phase="kernels") -> int:
+    """The padded call's real rows against the plain version on the same
+    inputs and against k separate K = 1 launches, word for word: the max
+    abs err (the run fails on any difference)."""
+    from repro_torch.kernels import sumcheck_round as K3
+    fs, sts = k3_padded(gen, dev, d, n, k)
+    got = K3.prove_rounds(fs, sts)
+    want = K3.prove_rounds_plain(fs, sts)
+    err = 0
+    for a, b in zip(got, want):
+        err = max(err, max_abs_err(a[:k], b[:k]))
+    for i in range(k):
+        one = K3.prove_rounds([f[i:i + 1].contiguous() for f in fs],
+                              sts[i:i + 1].contiguous())
+        for a, b in zip(got, one):
+            err = max(err, max_abs_err(a[i:i + 1], b))
+    if err != 0:
+        fail(phase, f"K3 d={d} n={n} {k} claims padded to "
+             f"K={fs[0].shape[0]}: rows differ (max abs err {err})")
+    return err
+
+
+def k3_bound(d: int, n: int, K: int = 1):
+    """Bound of one prove_rounds call over K claims: per claim, read d n Fp4
+    factor words and the state, write g, c, the finals and the state; n - 1
+    pairs over all rounds, each with (d + 1)(d - 1) + d Fp4 products, and
+    the sponge's permutations."""
     m = n.bit_length() - 1
     perms = m * (-(-4 * (d + 1) // 8) + 1) + -(-4 * d // 8)
     words = d * n * 4 + 16 + m * (d + 1) * 4 + m * 4 + d * 4 + 16
     ops = (n - 1) * ((d + 1) * (d - 1) + d) * F4_MULS + perms * PERM_MULS
-    return bound_ms(words * WORD_BYTES, ops)
+    return bound_ms(K * words * WORD_BYTES, K * ops)
 
 
 def k2_bound(rows: int, n: int, c: int, word_bytes: int = WORD_BYTES):
@@ -672,8 +769,9 @@ def golden_phase(dev, phase="golden", fields=GOLDEN_CFG,
 # ---------------------------------------------------------------------------
 # Phase 5: serve 3 verified attestations at full width.
 # ---------------------------------------------------------------------------
-def serve_service(dev):
-    """The served ProofService: a 4-layer d=128 chain, weights from SEED."""
+def serve_service(dev, workers=1, **kw):
+    """The served ProofService: a 4-layer d=128 chain, weights from SEED
+    (``kw``: backend, weight_cache)."""
     import numpy as np
     from repro_torch import api
     from repro_torch.core import blocks as B
@@ -682,7 +780,15 @@ def serve_service(dev):
     weights = [B.init_weights(cfg, rng) for _ in range(SERVE_LAYERS)]
     return api.ProofService([cfg] * SERVE_LAYERS, weights,
                             pcs_blowup=PCS_BLOWUP, default_queries=PCS_QUERIES,
-                            workers=1, name="chip-smoke", device=dev)
+                            workers=workers, name="chip-smoke", device=dev,
+                            **kw)
+
+
+def canonical_v2(att) -> bytes:
+    """v2 bytes with ``prove_seconds``, the one telemetry field, set to 0."""
+    att.prove_seconds = 0.0
+    att.__dict__.pop("_wire_cache", None)
+    return att.to_bytes(2)
 
 
 def serve_query(q: int):
@@ -695,18 +801,20 @@ def serve_query(q: int):
                    -32768, 32767).astype(np.int64)
 
 
-def serve_phase(dev):
+def serve_phase(dev, cache, twins):
     """The last request's attest runs under torch.profiler (its time then
     includes the profiler's cost; it is flagged ``profiled``); its K2 and K4
     calls are counted by shape, and its K2/K4 kernels' device ms read from
-    the trace."""
+    the trace.  Each request's canonical v2 bytes, seconds and K3
+    launches go to ``twins`` (the serial twins of later phases); the weight
+    commitments stay in ``cache``."""
     from repro_torch import api
     from repro_torch.kernels import modmatmul as K4
     from repro_torch.kernels import ntt_kernel as K2
     policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
     out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, pcs_blowup=PCS_BLOWUP,
                pcs_queries=PCS_QUERIES, requests=[])
-    with serve_service(dev) as svc:
+    with serve_service(dev, weight_cache=cache) as svc:
         t0 = time.monotonic()
         card = svc.model_card.to_bytes()
         out["setup_seconds"] = time.monotonic() - t0
@@ -735,6 +843,9 @@ def serve_phase(dev):
             if not rep.ok:
                 fail("serve", f"request {q}: verify rejected: {rep.reason}")
             r = svc.last_report
+            twins.append(dict(wire=canonical_v2(att), seconds=t_att,
+                              profiled=profiled,
+                              k3=after["sumcheck_round"] - before["sumcheck_round"]))
             out["requests"].append(dict(
                 seconds=t_att, forward_seconds=r.forward_seconds,
                 commit_seconds=r.commit_seconds,
@@ -748,11 +859,49 @@ def serve_phase(dev):
         if got != want:
             fail("serve", f"{k} calls of one attest {got} != {want}")
     out["e_vec"] = time_e_vec(e_vec_calls)
+    out["default_workers"] = default_worker_attests(dev, cache, twins)
     plain = sorted(r["seconds"] for r in out["requests"] if not r["profiled"])
     if plain and out["profile"]["device_busy_ms"] is not None:
         # device busy time of the traced attest over the median untraced one
         out["profile"]["busy_share_of_untraced_request"] = (
             out["profile"]["device_busy_ms"] / 1e3 / plain[len(plain) // 2])
+    return out
+
+
+def batcher_waits(r) -> dict:
+    """The round batcher's counters from an EngineReport: its flushes, and
+    the seconds its claims waited for them (gather), the straggler
+    timeout's flushes apart, and the seconds in its K3 calls and reads."""
+    return dict(batched_claims=r.batched_claims, launch_waves=r.launch_waves,
+                claims=sum(n * k for (_, _, k), n in r.wave_shapes.items()),
+                flushes=r.flushes, timeout_flushes=r.timeout_flushes,
+                gather_seconds=r.gather_seconds,
+                timeout_gather_seconds=r.timeout_gather_seconds,
+                flush_seconds=r.flush_seconds)
+
+
+def default_worker_attests(dev, cache, twins):
+    """DEFAULT_WORKER_ATTESTS of the serve phase's queries, one attest each
+    at ProofService's default worker count: bytes equal to the serial
+    twins, seconds beside theirs, the batcher's counters and waits."""
+    from repro_torch import api
+    workers = inspect.signature(api.ProofService).parameters["workers"].default
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    out = dict(workers=workers, requests=[])
+    with serve_service(dev, workers=workers, weight_cache=cache) as svc:
+        for q in range(DEFAULT_WORKER_ATTESTS):
+            t0 = time.monotonic()
+            att = svc.attest(serve_query(q), policy)
+            seconds = time.monotonic() - t0
+            if canonical_v2(att) != twins[q]["wire"]:
+                fail("serve", f"request {q} at {workers} workers: bytes differ "
+                     "from the serial attest")
+            r = svc.last_report
+            out["requests"].append(dict(
+                query=q, seconds=seconds, serial_seconds=twins[q]["seconds"],
+                forward_seconds=r.forward_seconds,
+                commit_seconds=r.commit_seconds,
+                prove_seconds=r.prove_seconds, **batcher_waits(r)))
     return out
 
 
@@ -966,9 +1115,12 @@ def _shape_delta(after, before):
                   if v != before.get(k, 0))
 
 
-def llama_phase(dev):
+def llama_phase(dev, cache, twins):
     """Setup, 2 attests at budget 1.0 and a Fisher-selected one at 0.5 on
-    the 2-layer TinyLlama-width chain, each verified on the card."""
+    the 2-layer TinyLlama-width chain, each verified on the card.  The
+    weight commitments stay in ``cache`` and the budget-1.0 attests'
+    canonical v2 bytes go to ``twins``, for llama_batch.  Returns (the
+    phase's record, the weights)."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -1017,7 +1169,7 @@ def llama_phase(dev):
     with api.ProofService([cfg] * LLAMA_LAYERS, weights, pcs_blowup=PCS_BLOWUP,
                           default_queries=PCS_QUERIES, workers=1,
                           fisher_scores=scores, name="chip-smoke-llama",
-                          device=dev) as svc:
+                          weight_cache=cache, device=dev) as svc:
         t0 = time.monotonic()
         with MemoryStages(dev) as stages:
             card = svc.model_card.to_bytes()
@@ -1069,10 +1221,423 @@ def llama_phase(dev):
                          f"checked {rep.checked_layers}; select_fisher: {want}")
             elif rep.checked_layers != LLAMA_LAYERS:
                 fail("llama", f"request {q}: checked {rep.checked_layers} layers")
+            else:
+                twins.append(dict(wire=canonical_v2(att), seconds=t_att))
     ns = {k[1] for k in K2.launch_shapes}
     out["k2_row_lengths"] = sorted(ns)
     if not {1 << 16, 1 << 17} <= ns:
         fail("llama", f"K2 never ran rows of 2^16 and 2^17 words: {sorted(ns)}")
+    return out, weights
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving tier on the d=128 chain: a gateway over two worker
+# threads whose sum-checks meet in multi-claim K3 calls.
+# ---------------------------------------------------------------------------
+def recording_client():
+    """GatewayClient whose attest_verify runs as it is, keeping the wire's
+    chunks and the time the first one arrived."""
+    from repro_torch.gateway import GatewayClient
+
+    class RecordingClient(GatewayClient):
+        def _stream_response(self, on_chunk):
+            self.chunks, self.first_chunk_at = [], None
+
+            def keep(b):
+                if self.first_chunk_at is None:
+                    self.first_chunk_at = time.monotonic()
+                self.chunks.append(b)
+                on_chunk(b)
+            self.done_info = super()._stream_response(keep)
+            return self.done_info
+    return RecordingClient
+
+
+def record_windows(svc, windows):
+    """Wrap ``svc.attest_many`` (the gateway's call per window) to record
+    each window: its queries, wall seconds, K3 launches, and the engine
+    report's batcher counters and waits (``batcher_waits``)."""
+    from repro_torch.kernels import sumcheck_round as K3
+    inner = svc.attest_many
+
+    def attest_many(queries, policies=None, tokens=None):
+        k0, t0 = K3.launches, time.monotonic()
+        atts = inner(queries, policies, tokens)
+        r = svc.last_report
+        windows.append(dict(
+            queries=list(queries), size=len(queries),
+            seconds=time.monotonic() - t0, k3_launches=K3.launches - k0,
+            wave_shapes=dict(r.wave_shapes), **batcher_waits(r),
+            forward_seconds=r.forward_seconds,
+            commit_seconds=r.commit_seconds, prove_seconds=r.prove_seconds))
+        return atts
+    svc.attest_many = attest_many
+
+
+def spawned_process():
+    """One spawned worker process (a dead one raises, not hangs)."""
+    import torch
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        1, mp_context=torch.multiprocessing.get_context("spawn"))
+
+
+def gateway_clients(host, port, card, queries, per_client, pcs_queries,
+                    device):
+    """The gateway phase's clients, in a process of their own as clients
+    are (their verification must not share the server's interpreter
+    lock): each client sends ``per_client`` of the queries at once, one
+    connection a query, all released together, and stream-verifies on
+    ``device`` as its chunks arrive.  Returns {query: record}, errors."""
+    import threading
+    import torch
+    from repro_torch import api
+    dev = torch.device(device)
+    policy = api.VerifyPolicy(pcs_queries=pcs_queries)
+    client_cls = recording_client()
+    results, errors = {}, []
+    gate = threading.Barrier(len(queries))
+
+    def request(q, client_id):
+        try:
+            with client_cls(host, port, client_id=client_id, timeout=900,
+                            device=dev) as cli:
+                gate.wait(timeout=120)
+                t1 = time.monotonic()
+                rep = cli.attest_verify(queries[q], card, policy)
+                t2 = time.monotonic()
+                results[q] = dict(ok=rep.ok, complete=rep.complete,
+                                  reason=rep.reason,
+                                  checked_layers=rep.checked_layers,
+                                  wire=b"".join(cli.chunks), seconds=t2 - t1,
+                                  verify_seconds=t2 - cli.first_chunk_at,
+                                  batch_size=cli.done_info["batch_size"])
+        except BaseException as e:  # noqa: BLE001 — reported to the parent
+            errors.append(f"query {q}: {e!r}")
+
+    threads = [threading.Thread(target=request,
+                                args=(q, f"client-{q // per_client}"))
+               for q in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client did not finish within 900 s")
+    return results, errors
+
+
+def gateway_phase(dev, cache, twins):
+    """An AttestationGateway (windows of up to GATEWAY_MAX_BATCH) over
+    ProofService(workers=SERVE_WORKERS), served on a socket on 127.0.0.1,
+    answers the clients of ``gateway_clients`` (a process of their own).
+    Every attestation's canonical v2 bytes must equal its serial twin
+    (workers=1: the serve phase's requests, then the rest here).  Per
+    window: its size, the batcher's counters, K3 launches against the
+    serial sum for the same queries, wall seconds and seconds per query;
+    per query: verify seconds (first chunk to verdict)."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.gateway import AttestationGateway, GatewayConfig
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    n = GATEWAY_CLIENTS * GATEWAY_QUERIES_PER_CLIENT
+    out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, pcs_queries=PCS_QUERIES,
+               clients=GATEWAY_CLIENTS, queries_per_client=GATEWAY_QUERIES_PER_CLIENT,
+               max_batch=GATEWAY_MAX_BATCH, window_seconds=GATEWAY_WINDOW_SECONDS,
+               workers=SERVE_WORKERS)
+    t0 = time.monotonic()
+    with serve_service(dev, weight_cache=cache) as serial:
+        for q in range(len(twins), n):
+            before = launch_counts()
+            t1 = time.monotonic()
+            att = serial.attest(serve_query(q), policy)
+            att.to_bytes(2)
+            twins.append(dict(wire=canonical_v2(att), seconds=time.monotonic() - t1,
+                              profiled=False, k3=launch_counts()["sumcheck_round"]
+                              - before["sumcheck_round"]))
+    out["serial_twins_seconds"] = time.monotonic() - t0
+    progress("gateway", "serial twins attested", t0)
+    queries = [serve_query(q) for q in range(n)]
+    windows = []
+    reset_counts()
+    t0 = time.monotonic()
+    with serve_service(dev, workers=SERVE_WORKERS, weight_cache=cache) as svc:
+        card = svc.model_card.to_bytes()
+        record_windows(svc, windows)
+        cfg = GatewayConfig(max_batch=GATEWAY_MAX_BATCH,
+                            window_seconds=GATEWAY_WINDOW_SECONDS)
+        with AttestationGateway(svc, cfg) as gw, spawned_process() as pool:
+            host, port = gw.serve(host="127.0.0.1", port=0).address
+            results, errors = pool.submit(
+                gateway_clients, host, port, card, queries,
+                GATEWAY_QUERIES_PER_CLIENT, PCS_QUERIES, str(dev)).result()
+            out["metrics"] = gw.metrics_snapshot()
+        out["seconds"] = time.monotonic() - t0
+        torch.cuda.synchronize(dev)
+    if errors:
+        fail("gateway", "; ".join(errors))
+    k3_serial = [t["k3"] for t in twins]
+    out["requests"] = []
+    for q in range(n):
+        r = results[q]
+        if not (r["ok"] and r["complete"] and r["checked_layers"] == SERVE_LAYERS):
+            fail("gateway", f"query {q}: stream verify rejected: {r['reason']}")
+        got = canonical_v2(api.Attestation.from_bytes(r["wire"], device=dev))
+        if got != twins[q]["wire"]:
+            fail("gateway", f"query {q}: attestation bytes differ from the "
+                 "serial workers=1 attest")
+        out["requests"].append(dict(query=q, seconds=r["seconds"],
+                                    verify_seconds=r["verify_seconds"],
+                                    batch_size=r["batch_size"],
+                                    wire_bytes=len(r["wire"])))
+    out["windows"] = []
+    for w in windows:
+        qs = [next(q for q in range(n) if np.array_equal(x, queries[q]))
+              for x in w.pop("queries")]
+        w.update(query_ids=qs, k3_serial=sum(k3_serial[q] for q in qs),
+                 seconds_per_query=w["seconds"] / w["size"],
+                 wave_shapes=sorted([d, m, k, c] for (d, m, k), c
+                                    in w["wave_shapes"].items()))
+        out["windows"].append(w)
+    claims = sum(w["claims"] for w in out["windows"])
+    batched = sum(w["batched_claims"] for w in out["windows"])
+    out["batched_share_of_claims"] = batched / claims if claims else None
+    out["k3_launches_per_query"] = sum(w["k3_launches"] for w in out["windows"]) / n
+    out["serial_k3_launches_per_query"] = sum(k3_serial[:n]) / n
+    out["serial_seconds_per_query"] = sorted(t["seconds"] for t in twins[:n]
+                                             if not t["profiled"])
+    if not batched:
+        fail("gateway", "no sum-check claim shared a K3 call")
+    if out["k3_launches_per_query"] >= out["serial_k3_launches_per_query"]:
+        fail("gateway", f"K3 launches per query {out['k3_launches_per_query']} "
+             f"not below serial {out['serial_k3_launches_per_query']}")
+    return out
+
+
+def batched_shapes(windows):
+    """(d, n, claims) of the gateway phase's multi-claim K3 calls, most
+    frequent first."""
+    count = {}
+    for w in windows:
+        for d, n, k, c in w["wave_shapes"]:
+            if k > 1:
+                count[(d, n, k)] = count.get((d, n, k), 0) + c
+    return sorted(count, key=lambda s: -count[s]), count
+
+
+def time_k3_padded(device, seed, d, n, k, iters=20):
+    """K3 at one padded multi-claim shape: CUDA-event ms and profiler
+    device ms per call, the plain version's ms, launches per call.  Run in
+    a fresh process (the profiler saw no device time after the gateway
+    phase's threads in the smoke's own process)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sumcheck_round as K3
+    dev = torch.device(device)
+    fs, sts = k3_padded(np.random.default_rng(seed), dev, d, n, k)
+    _, prof = profiled_call(lambda: [K3.prove_rounds(fs, sts) for _ in range(iters)])
+    return dict(ms=gpu_ms(lambda: K3.prove_rounds(fs, sts), iters),
+                device_ms=(prof["device_busy_ms"] / iters
+                           if prof["device_busy_ms"] else None),
+                plain_ms=gpu_ms(lambda: K3.prove_rounds_plain(fs, sts), 1),
+                launches_per_call=K3.plan(d, n, fs[0].shape[0]).launches)
+
+
+def k3batch_phase(dev, gen, windows):
+    """K3 at every (d, n, claims) the gateway phase's waves met, padded as
+    the batcher pads them, against the plain version and per-claim K = 1
+    launches (word for word); the most frequent one timed (time_k3_padded)
+    with its bound."""
+    import torch
+    shapes, count = batched_shapes(windows)
+    err = 0
+    for d, n, k in shapes:
+        err = max(err, k3_padded_check(gen, dev, d, n, k, "k3batch"))
+        torch.cuda.empty_cache()
+    d, n, k = shapes[0]
+    kp = 1 << max(k - 1, 0).bit_length()
+    with spawned_process() as pool:
+        timed = pool.submit(time_k3_padded, str(dev), SEED + 5, d, n,
+                            k).result()
+    bnd, by = k3_bound(d, n, kp)
+    return dict(shapes=[[*s, count[s]] for s in shapes], max_abs_err=err,
+                timed=dict(d=d, n=n, claims=k, K=kp, waves=count[shapes[0]],
+                           bound_ms=bnd, bound_by=by, **timed))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the process backend on the d=128 chain.
+# ---------------------------------------------------------------------------
+def commitment_bytes(com) -> int:
+    """Device bytes of a commitment's matrix, codewords and Merkle levels."""
+    ts = [com.mat] + ([com.enc] if com.enc is not None else []) + list(com.tree.levels)
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def parent_allocated(dev) -> int:
+    """The smoke's own allocated device bytes, after a collection."""
+    import torch
+    gc.collect()
+    return torch.cuda.memory_allocated(dev)
+
+
+def released(dev, base: int, phase: str) -> int:
+    """Fails unless the smoke's process is back at ``base`` allocated
+    bytes: a tensor sent to a worker process that the worker still held
+    when the parent dropped it would stay allocated."""
+    now = parent_allocated(dev)
+    if now != base:
+        fail(phase, f"{now - base} B still allocated after the process-backed "
+             "service closed")
+    return now - base
+
+
+def process_phase(dev, cache, twins):
+    """PROCESS_ATTESTS attests on ProofService(workers=SERVE_WORKERS,
+    backend="process"): the first one's seconds (spawn and warm-up) apart
+    from the warm ones; each job's pickled payload bytes against the
+    device bytes of the weight commitment it carries by IPC; each child's
+    allocated device bytes once its payload is in, and its peak; kernel
+    launches of the parent and of the children.  Bytes must equal the
+    serial twins."""
+    from repro_torch import api
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    out = dict(config=SERVE_CFG, layers=SERVE_LAYERS, workers=SERVE_WORKERS,
+               backend="process", requests=[])
+    totals = {}
+    base = parent_allocated(dev)
+    with serve_service(dev, workers=SERVE_WORKERS, backend="process",
+                       weight_cache=cache) as svc:
+        wt_bytes = commitment_bytes(svc.engine_for(PCS_QUERIES).wt_commits[0].com)
+        out["weight_commitment_device_bytes"] = wt_bytes
+        for q in range(PROCESS_ATTESTS):
+            t0 = time.monotonic()
+            att = svc.attest(serve_query(q), policy)
+            seconds = time.monotonic() - t0
+            if canonical_v2(att) != twins[q]["wire"]:
+                fail("process", f"request {q}: bytes differ from the serial twin")
+            jobs = svc.last_report.process_jobs
+            child = {}
+            for j in jobs:
+                for k, v in j["launches"].items():
+                    child[k] = child.get(k, 0) + v
+                    totals[k] = totals.get(k, 0) + v
+            if max(j["payload_bytes"] for j in jobs) >= wt_bytes:
+                fail("process", "a job's payload carries the commitment as bytes")
+            out["requests"].append(dict(
+                seconds=seconds, first=q == 0,
+                payload_bytes=[j["payload_bytes"] for j in jobs],
+                child_pids=sorted({j["pid"] for j in jobs}),
+                child_allocated_after_payload=[j.get("allocated_after_payload")
+                                               for j in jobs],
+                child_max_allocated_gib=[j.get("max_allocated", 0) / (1 << 30)
+                                         for j in jobs],
+                child_launches=child))
+    del svc
+    out["parent_allocated_after_close"] = released(dev, base, "process")
+    out["child_launches"] = totals
+    warm = sorted(r["seconds"] for r in out["requests"] if not r["first"])
+    out["warm_seconds"] = warm
+    out["thread_serial_seconds"] = sorted(t["seconds"] for t in twins[:PROCESS_ATTESTS]
+                                          if not t["profiled"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the llama chain batched and on worker processes.
+# ---------------------------------------------------------------------------
+def staged_child_prove(device, blob):
+    """The process backend's worker function under MemoryStages (the
+    llama_batch phase installs it in the parent; the child runs it)."""
+    import torch
+    from repro_torch.runtime import engine as E
+    with MemoryStages(torch.device(device)) as stages:
+        lp, info = E._child_prove(device, blob)
+    info["memory_stages"] = stages.summary()
+    return lp, info
+
+
+def llama_batch_phase(dev, weights, cache, twins):
+    """On the llama phase's weights and commitments (``cache``): attest_many
+    of llama_query(0..LLAMA_BATCH-1) on 2 worker threads (the batcher on),
+    then one attest on 2 worker processes; bytes equal to the llama phase's
+    serial attests.  Peak device memory by stage (MemoryStages) in the
+    parent and in each child, and the stage that set the peak."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    from repro_torch.runtime import engine as E
+    cfg = B.BlockCfg(**LLAMA_CFG)
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    gib = 1 << 30
+    out = dict(config=LLAMA_CFG, layers=LLAMA_LAYERS, workers=2,
+               batch=LLAMA_BATCH, pcs_queries=PCS_QUERIES)
+
+    def service(**kw):
+        return api.ProofService([cfg] * LLAMA_LAYERS, weights,
+                                pcs_blowup=PCS_BLOWUP, default_queries=PCS_QUERIES,
+                                workers=2, name="chip-smoke-llama",
+                                weight_cache=cache, device=dev, **kw)
+    start = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["resident_memory_gib"] = torch.cuda.memory_allocated(dev) / gib
+    with service() as svc:
+        t0 = time.monotonic()
+        with MemoryStages(dev) as stages:
+            atts = svc.attest_many([llama_query(q) for q in range(LLAMA_BATCH)],
+                                   [policy] * LLAMA_BATCH)
+        torch.cuda.synchronize(dev)
+        seconds = time.monotonic() - t0
+        r = svc.last_report
+        for q, att in enumerate(atts):
+            if canonical_v2(att) != twins[q]["wire"]:
+                fail("llama_batch", f"batched query {q}: bytes differ from "
+                     "the serial attest")
+        out["batched"] = dict(
+            seconds=seconds, seconds_per_query=seconds / LLAMA_BATCH,
+            serial_seconds=[t["seconds"] for t in twins[:LLAMA_BATCH]],
+            forward_seconds=r.forward_seconds, commit_seconds=r.commit_seconds,
+            prove_seconds=r.prove_seconds, batched_claims=r.batched_claims,
+            launch_waves=r.launch_waves,
+            wave_shapes=sorted([d, n, k, c] for (d, n, k), c in r.wave_shapes.items()),
+            max_memory_gib=torch.cuda.max_memory_allocated(dev) / gib,
+            memory_stages=stages.summary())
+    progress("llama_batch", f"attest_many of {LLAMA_BATCH} ({seconds:.1f} s, "
+             f"{out['batched']['max_memory_gib']:.1f} GiB)", start)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inner = E._child_prove
+    E._child_prove = staged_child_prove
+    base = parent_allocated(dev)
+    try:
+        with service(backend="process") as svc:
+            t0 = time.monotonic()
+            with MemoryStages(dev) as stages:
+                att = svc.attest(llama_query(0), policy)
+            seconds = time.monotonic() - t0
+            jobs = svc.last_report.process_jobs
+        del svc
+    finally:
+        E._child_prove = inner
+    after_close = released(dev, base, "llama_batch")
+    if canonical_v2(att) != twins[0]["wire"]:
+        fail("llama_batch", "process-backend attest: bytes differ from the "
+             "serial attest")
+    child = {}
+    for j in jobs:
+        for k, v in j["launches"].items():
+            child[k] = child.get(k, 0) + v
+    out["process"] = dict(
+        seconds=seconds, parent_allocated_after_close=after_close,
+        parent_max_memory_gib=torch.cuda.max_memory_allocated(dev) / gib,
+        parent_memory_stages=stages.summary(), child_launches=child,
+        children=[dict(pid=j["pid"], payload_bytes=j["payload_bytes"],
+                       allocated_after_payload=j.get("allocated_after_payload"),
+                       max_allocated_gib=j.get("max_allocated", 0) / gib,
+                       memory_stages=j["memory_stages"]) for j in jobs])
+    progress("llama_batch", f"process attest ({seconds:.1f} s)", start)
     return out
 
 
@@ -1145,10 +1710,12 @@ def reset_counts() -> None:
 def launch_counts():
     """Launches per kernel since reset_counts; ``ntt_long_rows`` is the
     part of K2's made on rows longer than 2^15 words."""
-    from repro_torch.kernels import ntt_kernel as K2
-    out = {name: mod.launches for name, mod, _, _ in kernel_modules()}
-    out["ntt_long_rows"] = K2.long_launches
-    return out
+    from repro_torch.kernels import launch_counts as counts
+    return counts()
+
+
+def add_counts(a, b):
+    return {k: a[k] + b.get(k, 0) for k in a}
 
 
 def main() -> int:
@@ -1205,8 +1772,10 @@ def main() -> int:
     golden = golden_phase(dev)
     emit({"phase": "golden", "ok": True, **golden})
 
+    from repro_torch.runtime.engine import WeightCommitCache
+    d128_cache, d128_twins = WeightCommitCache(), []
     reset_counts()
-    serve = serve_phase(dev)
+    serve = serve_phase(dev, d128_cache, d128_twins)
     serve_launches = launch_counts()
     emit({"phase": "serve", "ok": True, "launches": serve_launches, **serve})
     idle = [n for n in SERVE_KERNELS if serve_launches[n] == 0]
@@ -1228,10 +1797,38 @@ def main() -> int:
     emit({"phase": "k2long", "ok": True, "seconds": time.monotonic() - t0,
           "times": k2long})
 
+    # the serving tier on the d=128 chain; each path's counts zeroed just
+    # before it and read just after (gateway_phase zeroes them after its
+    # serial twins; a worker process's launches come back with its job)
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    gateway = gateway_phase(dev, d128_cache, d128_twins)
+    gateway_launches = launch_counts()
+    emit({"phase": "gateway", "ok": True, "seconds": time.monotonic() - t0,
+          "launches": gateway_launches, **gateway})
+    idle = [n for n in SERVE_KERNELS if gateway_launches[n] == 0]
+    if idle:
+        fail("gateway", f"kernels never launched on the gateway path: {idle}")
+
+    t0 = time.monotonic()
+    k3b = k3batch_phase(dev, np.random.default_rng(SEED + 4), gateway["windows"])
+    emit({"phase": "k3batch", "ok": True, "seconds": time.monotonic() - t0, **k3b})
+
     reset_counts()
     t0 = time.monotonic()
-    llama = llama_phase(dev)
+    process = process_phase(dev, d128_cache, d128_twins)
+    process_launches = add_counts(launch_counts(), process["child_launches"])
+    emit({"phase": "process", "ok": True, "seconds": time.monotonic() - t0,
+          "launches": process_launches, **process})
+    idle = [n for n in SERVE_KERNELS if process_launches[n] == 0]
+    if idle:
+        fail("process", f"kernels never launched on the process path: {idle}")
+
+    torch.cuda.empty_cache()
+    llama_cache, llama_twins = WeightCommitCache(), []
+    reset_counts()
+    t0 = time.monotonic()
+    llama, llama_weights = llama_phase(dev, llama_cache, llama_twins)
     llama_launches = launch_counts()
     emit({"phase": "llama", "ok": True, "seconds": time.monotonic() - t0,
           "launches": llama_launches, **llama})
@@ -1239,6 +1836,18 @@ def main() -> int:
             if llama_launches[n] == 0]
     if idle:
         fail("llama", f"kernels never launched on the llama path: {idle}")
+
+    # llama batched and on worker processes, its weights and commitments
+    # still resident (a worker process's launches come back with its job)
+    reset_counts()
+    t0 = time.monotonic()
+    llama_batch = llama_batch_phase(dev, llama_weights, llama_cache, llama_twins)
+    lb_launches = add_counts(launch_counts(), llama_batch["process"]["child_launches"])
+    emit({"phase": "llama_batch", "ok": True, "seconds": time.monotonic() - t0,
+          "launches": lb_launches, **llama_batch})
+    idle = [n for n in SERVE_KERNELS if lb_launches[n] == 0]
+    if idle:
+        fail("llama_batch", f"kernels never launched on the llama_batch path: {idle}")
 
     kernels = []
     for name, _, src, replaces in kernel_modules():
@@ -1262,6 +1871,18 @@ def main() -> int:
         launches=llama_launches["ntt_long_rows"], max_abs_err=long_err,
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None))
+    # K3's multi-claim calls (the round batcher's): the gateway path's K3
+    # launches, the padded checks (kernels and k3batch phases), and the
+    # most frequent batched shape timed
+    kt = k3b["timed"]
+    kernels.append(dict(
+        name="sumcheck_round_batched", route="cuda",
+        source="src/repro_torch/csrc/sumcheck_round.cu",
+        replaces="src/repro/kernels/sumcheck_round.py:167",
+        launches=gateway_launches["sumcheck_round"],
+        max_abs_err=max(recs["sumcheck_round"]["max_abs_err"], k3b["max_abs_err"]),
+        ms=kt["ms"], plain_ms=kt["plain_ms"], bound_ms=kt["bound_ms"],
+        bound_by=kt["bound_by"], library_ms=None))
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

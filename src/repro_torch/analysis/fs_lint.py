@@ -50,11 +50,12 @@ from .replay import ReplayLog
 SRC_ROOT = pathlib.Path(__file__).resolve().parents[1]   # src/repro_torch
 
 # Files allowed to call Transcript.set_state — each installs a state
-# produced by an equivalent absorb/squeeze sequence (the K3 kernel) and is
-# covered by the golden byte tests.
+# produced by an equivalent absorb/squeeze sequence (the K3 kernel, alone
+# or through the round batcher) and is covered by the golden byte tests.
 SET_STATE_ALLOW = {
     "core/transcript.py",
     "core/sumcheck.py",
+    "runtime/engine.py",
 }
 SQUEEZE_ALLOW = {"core/transcript.py"}
 

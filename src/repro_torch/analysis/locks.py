@@ -1,8 +1,10 @@
 """Lock-order lint (analysis pass ``locks``; mirrors
 ``repro.analysis.locks``).
 
-The port's service stack takes locks on several layers (api → engine →
-scheduler → leaves: the replay queue, the analysis log, the kernel build).  Deadlock freedom rests on one
+The port's service stack takes locks on several layers (gateway → api →
+engine → scheduler → round batcher → leaves: admission, metrics,
+transport, the replay queue, the analysis log, the kernel build and
+launch counters).  Deadlock freedom rests on one
 rule: **locks are only ever acquired in increasing rank order**, with
 ranks declared once in ``LOCK_RANKS`` below and documented in the
 "Lock order" section of each owning module's docstring.
@@ -39,20 +41,32 @@ _LOCK_CTORS = {"Lock", "RLock", "Condition", "Semaphore",
 
 # (file, owning class or None, attribute/variable name) -> rank.
 # Outermost (taken first) = lowest rank.  Same rank = never nested.  The
-# ranks are the JAX package's; the gateway, process-pool and round-batcher
-# locks join when those modules are ported.
+# ranks are the JAX package's.
 LOCK_RANKS: Dict[Tuple[str, Optional[str], str], int] = {
+    # gateway admission front door — held only for window bookkeeping,
+    # never while proving
+    ("gateway/gateway.py", "AttestationGateway", "_lock"): 10,
     # service-level engine/card creation
     ("api/service.py", "ProofService", "_lock"): 20,
+    # engine process-pool lifecycle
+    ("runtime/engine.py", "ProverEngine", "_pool_lock"): 30,
     # weight-commitment cache fills (may run under the service lock)
     ("runtime/engine.py", "WeightCommitCache", "_lock"): 40,
     # scheduler error/busy bookkeeping inside a prove (local to run())
     ("runtime/scheduler.py", "run", "lock"): 50,
-    # leaves: replay buffers and the kernel build — never hold anything
-    # else while held
+    # sum-check round-batcher registry + wave condition (a wave's K3 call
+    # runs under the condition and takes only leaves)
+    ("core/sumcheck.py", None, "_BATCHER_LOCK"): 60,
+    ("runtime/engine.py", "SumcheckRoundBatcher", "_cv"): 60,
+    # leaves: telemetry / transport / replay buffers, the kernel build and
+    # the kernels' launch counters — never hold anything else while held
+    ("gateway/transport.py", "GatewayServer", "_lock"): 70,
+    ("gateway/metrics.py", "GatewayMetrics", "_lock"): 70,
+    ("gateway/admission.py", "AdmissionQueue", "_cv"): 70,
     ("runtime/fault.py", "ProofWorkReplayQueue", "_lock"): 70,
     ("analysis/replay.py", "ReplayLog", "_mu"): 70,
     ("kernels/_build.py", None, "_LOCK"): 70,
+    ("kernels/_build.py", None, "_COUNT_LOCK"): 70,
 }
 
 # Modules that own a ranked lock must carry a "Lock order" docstring

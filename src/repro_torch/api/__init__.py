@@ -10,15 +10,20 @@ Provider side::
 Client side::
 
     report = api.verify(wire, x0, card)  # VerifyReport(ok=..., reason=...)
+    sv = api.StreamingVerifier(x0, card)  # or chunk by chunk, as v2
+    for chunk in chunks:                  # frames arrive
+        sv.feed(chunk)
+    report = sv.finish()
 """
 from .codec import CodecError, decode_obj, encode_obj, pack, unpack
-from .service import ProofService, select_layers, verify
+from .service import (ProofService, StreamingVerifier, select_layers,
+                      verify, verify_batch)
 from .types import (PROTOCOL_VERSION, Attestation, ModelCard, VerifyPolicy,
                     VerifyReport, lut_table_digests)
 
 __all__ = [
     "Attestation", "CodecError", "ModelCard", "PROTOCOL_VERSION",
-    "ProofService", "VerifyPolicy", "VerifyReport", "decode_obj",
-    "encode_obj", "lut_table_digests", "pack", "select_layers", "unpack",
-    "verify",
+    "ProofService", "StreamingVerifier", "VerifyPolicy", "VerifyReport",
+    "decode_obj", "encode_obj", "lut_table_digests", "pack",
+    "select_layers", "unpack", "verify", "verify_batch",
 ]

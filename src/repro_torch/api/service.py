@@ -2,21 +2,22 @@
 (mirrors ``repro.api.service``).
 
 ``ProofService`` owns the staged ``ProverEngine``s (one per PCS query
-count) and the shared ``WeightCommitCache``; ``attest`` returns a
-serializable ``Attestation`` whose v1/v2 bytes equal the JAX package's.
+count), their worker fleets and the shared ``WeightCommitCache``;
+``attest`` returns a serializable ``Attestation`` whose v1/v2 bytes equal
+the JAX package's, and ``attest_many`` proves a window of queries with one
+coalesced commit pass (the gateway's entry point).
 ``verify(attestation, query, model_card)`` is the client side: it needs
 only the query and the published ``ModelCard``, re-derives c_0 from the
 query, checks the Eq. 3 adjacency and every layer proof, and never raises
-on malformed input.
-
-Not ported yet: ``attest_many``, ``StreamingVerifier`` and
-``verify_batch``.
+on malformed input.  ``StreamingVerifier`` runs the same checks frame by
+frame as v2 bytes arrive (one-shot ``verify`` of v2 bytes goes through
+it), and ``verify_batch`` verifies many attestations against one card.
 
 Lock order (ranked in repro_torch.analysis.locks): ``ProofService._lock`` is
-rank 20, the outermost lock of the port (the gateway's rank 10 is not
-ported yet).  It may be held while acquiring the weight-cache (rank 40),
-scheduler (rank 50) or leaf (rank 70) locks, the kernel build lock among
-them.
+rank 20, taken under the gateway lock (rank 10) only.  It may be held
+while acquiring the engine pool (rank 30), weight-cache (rank 40),
+scheduler (rank 50), batcher (rank 60) or leaf (rank 70) locks, the
+kernel build lock among them.
 """
 from __future__ import annotations
 
@@ -34,8 +35,9 @@ from repro_torch.device import resolve_device
 from repro_torch.runtime.engine import ProverEngine, WeightCommitCache
 
 from . import codec
-from .types import (PROTOCOL_VERSION, Attestation, ModelCard, VerifyPolicy,
-                    VerifyReport, lut_table_digests)
+from .types import (KIND_ATTESTATION, PROTOCOL_VERSION, Attestation,
+                    ModelCard, VerifyPolicy, VerifyReport, _layer_from_frame,
+                    lut_table_digests)
 
 _LUT_DIGEST_CACHE: Optional[Dict[str, bytes]] = None
 
@@ -79,11 +81,15 @@ def select_layers(policy: VerifyPolicy, n_layers: int,
 
 
 class ProofService:
-    """Long-lived provider facade: one resident service, many queries."""
+    """Long-lived provider facade: one resident service, many queries.
+
+    Engines are cached per ``pcs_queries`` and share one
+    ``WeightCommitCache``.  ``backend="process"`` keeps a spawned worker
+    fleet resident across ``attest`` calls until ``close()``."""
 
     def __init__(self, block_cfgs: Sequence, weights: Sequence[Dict],
                  pcs_blowup: int = 4, default_queries: int = 16,
-                 workers: int = 1, backend: str = "thread",
+                 workers: int = 2, backend: str = "thread",
                  fisher_scores: Optional[FISH.FisherScores] = None,
                  weight_cache: Optional[WeightCommitCache] = None,
                  fail_claims=None, name: str = "", device=None):
@@ -170,9 +176,58 @@ class ProofService:
         att.__dict__["_device"] = self.device
         return att
 
+    def attest_many(self, queries: Sequence[np.ndarray],
+                    policies: Optional[Sequence[VerifyPolicy]] = None,
+                    tokens: Optional[Sequence[np.ndarray]] = None
+                    ) -> List[Attestation]:
+        """Attest a WINDOW of queries (``ProverEngine.prove_many``): one
+        coalesced boundary-commit pass, and every ``(query, layer)`` job on
+        the same resident fleet.  The window's policies must agree on
+        ``pcs_queries`` (it fixes the commitment shape); budgets and
+        selectors may differ.  Each attestation equals the serial
+        ``attest`` of its query byte for byte, but for ``prove_seconds``:
+        the window's wall time over its size."""
+        K = len(queries)
+        if policies is None:
+            policies = [VerifyPolicy(pcs_queries=self.default_queries)] * K
+        policies = list(policies)
+        assert len(policies) == K
+        qcounts = {p.pcs_queries for p in policies}
+        assert len(qcounts) <= 1, \
+            f"attest_many window mixes pcs_queries {sorted(qcounts)}"
+        if K == 0:
+            return []
+        subsets = [select_layers(p, len(self.block_cfgs),
+                                 self.fisher_scores) for p in policies]
+        eng = self.engine_for(policies[0].pcs_queries)
+        t0 = time.monotonic()
+        proofs, report = eng.prove_many([np.asarray(q) for q in queries],
+                                        subsets)
+        dt = time.monotonic() - t0
+        self.queries_served += K
+        self.last_report = report
+        model_id = self.model_card.model_id
+        out = []
+        for i in range(K):
+            att = Attestation(
+                version=PROTOCOL_VERSION, model_id=model_id,
+                tokens=(np.asarray(tokens[i])
+                        if tokens is not None and tokens[i] is not None
+                        else np.zeros(0, np.int32)),
+                proof=proofs[i], proved_layers=list(subsets[i]),
+                policy=policies[i], prove_seconds=dt / K)
+            att.__dict__["_device"] = self.device
+            out.append(att)
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Stateless client-side verification.
+#
+# ``_VerifySession`` holds the pre-layer checks, the per-layer check and
+# the final accounting.  One-shot ``verify`` drives it over a decoded
+# object; ``StreamingVerifier`` drives the same session frame by frame as
+# v2 bytes arrive, so the two verdicts agree by construction.
 # ---------------------------------------------------------------------------
 def _reject(reason: str, t0: float, **kw) -> VerifyReport:
     return VerifyReport(ok=False, reason=reason,
@@ -186,13 +241,18 @@ class _VerifySession:
 
     def __init__(self, query, model_card, req_policy, device,
                  t0: Optional[float] = None,
-                 wire_version: Optional[int] = None):
+                 wire_version: Optional[int] = None,
+                 shared: Optional[Dict] = None):
         self.t0 = time.monotonic() if t0 is None else t0
         self.query = query
         self.card = model_card
         self.req_policy = req_policy
         self.device = device
         self.wire_version = wire_version
+        # batch-verify memo (one card, many attestations): the card's
+        # content address, the LUT-digest audit, and the recomputed
+        # selection per (policy, n_layers)
+        self.shared: Dict = {} if shared is None else shared
         self.base: Dict = dict(attestation_bytes=0)
         self.cfgs: List = []
         self.params: Optional[PCS.PCSParams] = None
@@ -206,6 +266,13 @@ class _VerifySession:
     def _reject(self, reason: str) -> VerifyReport:
         self.report = _reject(reason, self.t0, **self.base)
         return self.report
+
+    def progress(self) -> VerifyReport:
+        """Interim accept-so-far snapshot (streaming progress)."""
+        return VerifyReport(ok=True, reason="", complete=False,
+                            checked_layers=self.checked,
+                            verify_seconds=time.monotonic() - self.t0,
+                            **self.base)
 
     def head(self, info: Dict) -> Optional[VerifyReport]:
         if self.report is not None:
@@ -243,17 +310,22 @@ class _VerifySession:
                 f"minimum v{min_wire}")
         if not isinstance(self.card, ModelCard):
             return self._reject("model card unavailable")
-        card_id = self.card.model_id
+        card_id = self.shared.get("model_id")
+        if card_id is None:      # content address: one encode per batch
+            card_id = self.card.model_id
+            self.shared["model_id"] = card_id
         if info["model_id"] != card_id:
             return self._reject(
                 "model id mismatch: attestation is for "
                 f"{info['model_id']}, card is {card_id}")
-        local_luts = _local_lut_digests()
-        for lname, digest in sorted(self.card.lut_digests.items()):
-            if local_luts.get(lname) != digest:
-                return self._reject(
-                    f"LUT table digest mismatch for {lname!r}: verifier "
-                    "tables differ from the published card")
+        if not self.shared.get("lut_ok"):
+            local_luts = _local_lut_digests()
+            for lname, digest in sorted(self.card.lut_digests.items()):
+                if local_luts.get(lname) != digest:
+                    return self._reject(
+                        f"LUT table digest mismatch for {lname!r}: verifier "
+                        "tables differ from the published card")
+            self.shared["lut_ok"] = True
 
         cfgs = list(self.card.arch)
         L = len(cfgs)
@@ -296,7 +368,14 @@ class _VerifySession:
                 f"(incl. {pol.audit_random} random audits), "
                 f"got {len(idxs)}")
         if pol.budget < 1.0 and pol.selector in ("uniform", "random"):
-            expected = select_layers(pol, L)
+            # deterministic selectors are recomputable from the public
+            # policy; Fisher selection depends on server-side scores, so
+            # there only the count is enforceable.  A policy carrying
+            # unhashable attacker fields lands in the reject handler.
+            expected = self.shared.get(("sel", pol, L))
+            if expected is None:
+                expected = select_layers(pol, L)
+                self.shared[("sel", pol, L)] = expected
             if sorted(idxs) != sorted(expected):
                 return self._reject(
                     f"proved layers {sorted(idxs)} do not match the "
@@ -375,14 +454,135 @@ class _VerifySession:
         return self.report
 
 
+class StreamingVerifier:
+    """Incremental verifier for a v2 framed attestation stream.
+
+    Feed wire chunks as they arrive; each completed LAYR frame is verified
+    the moment its bytes are in.  ``feed`` returns interim ``VerifyReport``
+    snapshots (``complete=False``) after the head and each verified layer,
+    or the final (latched) rejection; ``finish`` returns the final verdict.
+    Malformed, truncated, reordered or tampered streams come back as
+    reasoned rejections, never exceptions.
+
+    Flood caps: ``max_buffered_bytes`` bounds the bytes buffered ahead of
+    the next completed frame, ``max_stalled_feeds`` the consecutive
+    zero-byte ``feed`` calls; crossing either is a reasoned rejection.
+    ``device`` is where the verifier's field work runs.
+    """
+
+    def __init__(self, query: Optional[np.ndarray],
+                 model_card: Union[ModelCard, bytes, bytearray, memoryview],
+                 policy: Optional[VerifyPolicy] = None,
+                 max_buffered_bytes: int = 256 << 20,
+                 max_stalled_feeds: int = 256,
+                 shared: Optional[Dict] = None, device=None):
+        t0 = time.monotonic()
+        dev = resolve_device(device)
+        card_err = None
+        if isinstance(model_card, (bytes, bytearray, memoryview)):
+            try:
+                model_card = ModelCard.from_bytes(bytes(model_card))
+            except codec.CodecError as e:
+                card_err = f"model card decode failed: {e}"
+                model_card = None
+        self.session = _VerifySession(query, model_card, policy, dev, t0=t0,
+                                      wire_version=2, shared=shared)
+        self.reader = codec.FrameReader(KIND_ATTESTATION)
+        self.fed = 0
+        self.max_buffered_bytes = int(max_buffered_bytes)
+        self.max_stalled_feeds = int(max_stalled_feeds)
+        self._stalled = 0
+        self.final_report: Optional[VerifyReport] = None
+        if card_err is not None:
+            self.final_report = self.session._reject(card_err)
+
+    def feed(self, chunk) -> List[VerifyReport]:
+        if self.final_report is not None:
+            return []
+        chunk = bytes(chunk)
+        self.fed += len(chunk)
+        self.session.base["attestation_bytes"] = self.fed
+        if not chunk:
+            self._stalled += 1
+            if self._stalled > self.max_stalled_feeds:
+                self.final_report = self.session._reject(
+                    f"attestation stream rejected: {self._stalled} "
+                    "consecutive zero-progress chunks")
+                return [self.final_report]
+            return []
+        self._stalled = 0
+        try:
+            frames = self.reader.feed(chunk)
+        except codec.CodecError as e:
+            self.final_report = self.session._reject(
+                f"attestation stream rejected: {e}")
+            return [self.final_report]
+        if len(self.reader.buf) > self.max_buffered_bytes:
+            self.final_report = self.session._reject(
+                "attestation stream rejected: "
+                f"{len(self.reader.buf)} bytes buffered without a "
+                f"completed frame exceeds the {self.max_buffered_bytes}"
+                "-byte cap")
+            return [self.final_report]
+        out: List[VerifyReport] = []
+        for fkind, obj in frames:
+            rep = self._frame(fkind, obj)
+            if rep is not None:
+                out.append(rep)
+            if self.final_report is not None:
+                break
+        return out
+
+    def _frame(self, fkind, obj) -> Optional[VerifyReport]:
+        sess = self.session
+        if fkind == codec.FRAME_HEAD:
+            if not isinstance(obj, dict):
+                self.final_report = sess._reject("malformed HEAD frame")
+                return self.final_report
+            rep = sess.head(obj)
+            if rep is not None:
+                self.final_report = rep
+                return rep
+            return sess.progress()
+        if fkind == codec.FRAME_LAYER:
+            try:
+                lp, stores = _layer_from_frame(obj)
+            except codec.CodecError as e:
+                self.final_report = sess._reject(f"bad LAYR frame: {e}")
+                return self.final_report
+            rep = sess.layer(lp, stores)
+            if rep is not None:
+                self.final_report = rep
+                return rep
+            return sess.progress()
+        if fkind == codec.FRAME_END:
+            self.final_report = sess.final()
+            return self.final_report
+        self.final_report = sess._reject(f"unexpected frame kind {fkind!r}")
+        return self.final_report
+
+    def finish(self) -> VerifyReport:
+        if self.final_report is None:
+            try:
+                self.reader.finish()
+            except codec.CodecError as e:
+                self.final_report = self.session._reject(
+                    f"attestation stream rejected: {e}")
+            else:   # reader done but no END routed (cannot happen)
+                self.final_report = self.session.final()
+        return self.final_report
+
+
 def verify(attestation: Union[Attestation, bytes, bytearray, memoryview],
            query: Optional[np.ndarray],
            model_card: Union[ModelCard, bytes, bytearray, memoryview],
            policy: Optional[VerifyPolicy] = None,
-           device=None) -> VerifyReport:
+           device=None, _shared: Optional[Dict] = None) -> VerifyReport:
     """Verify an attestation (object or v1/v2 wire bytes) against the
     client's own query and the model card; every failure is a reasoned
-    rejection.  ``device`` is where the verifier's field work runs."""
+    rejection.  v2 bytes go through :class:`StreamingVerifier` fed in one
+    shot, so one-shot and chunked verification share every check.
+    ``device`` is where the verifier's field work runs."""
     t0 = time.monotonic()
     dev = resolve_device(device)
     if isinstance(model_card, (bytes, bytearray, memoryview)):
@@ -395,18 +595,23 @@ def verify(attestation: Union[Attestation, bytes, bytearray, memoryview],
     wire_version = None
     if isinstance(attestation, (bytes, bytearray, memoryview)):
         data = bytes(attestation)
+        if codec.sniff_version(data) == 2:
+            sv = StreamingVerifier(query, model_card, policy, shared=_shared,
+                                   device=dev)
+            sv.feed(data)
+            return sv.finish()
         wire_len = len(data)
+        wire_version = 1
         try:
             attestation = Attestation.from_bytes(data, dev)
         except codec.CodecError as e:
             return _reject(f"attestation decode failed: {e}", t0,
                            attestation_bytes=wire_len)
-        wire_version = attestation.__dict__.get("_wire_version")
     elif isinstance(attestation, Attestation):
         wire_version = attestation.__dict__.get("_wire_version")
 
     sess = _VerifySession(query, model_card, policy, dev, t0=t0,
-                          wire_version=wire_version)
+                          wire_version=wire_version, shared=_shared)
     sess.base["attestation_bytes"] = wire_len
     try:
         info = dict(version=attestation.version,
@@ -435,3 +640,34 @@ def verify(attestation: Union[Attestation, bytes, bytearray, memoryview],
         if rep is not None:
             return rep
     return sess.final()
+
+
+def verify_batch(attestations: Sequence,
+                 queries: Sequence[Optional[np.ndarray]],
+                 model_card: Union[ModelCard, bytes, bytearray, memoryview],
+                 policies: Union[VerifyPolicy, Sequence[Optional[
+                     VerifyPolicy]], None] = None,
+                 device=None) -> List[VerifyReport]:
+    """Verify MANY attestations against ONE published ``ModelCard``: each
+    gets its own full verification and its own ``VerifyReport`` (one bad
+    item never poisons its neighbours), while the per-card work is paid
+    once: the card decode and content address, the LUT-digest audit, and
+    the selector recomputation per distinct ``(policy, n_layers)``.
+    ``policies`` is one policy for all, one per item, or None."""
+    t0 = time.monotonic()
+    dev = resolve_device(device)
+    n = len(attestations)
+    assert len(queries) == n, "attestations/queries length mismatch"
+    if isinstance(model_card, (bytes, bytearray, memoryview)):
+        try:
+            model_card = ModelCard.from_bytes(bytes(model_card))
+        except codec.CodecError as e:
+            rep = _reject(f"model card decode failed: {e}", t0)
+            return [rep] * n
+    if policies is None or isinstance(policies, VerifyPolicy):
+        policies = [policies] * n
+    assert len(policies) == n, "attestations/policies length mismatch"
+    shared: Dict = {}
+    return [verify(att, q, model_card, policy=pol, device=dev,
+                   _shared=shared)
+            for att, q, pol in zip(attestations, queries, policies)]

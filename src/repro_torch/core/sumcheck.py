@@ -5,10 +5,25 @@ given as (2^m, 4) evaluation vectors.  Variables bind MSB first and the
 point is reported MSB first.  ``prove`` always runs its rounds through the
 K3 kernel (``repro_torch.kernels.sumcheck_round``; its plain version on
 the CPU), with one host read of the results at the end.
+
+A worker thread that registered with a ``SumcheckRoundBatcher``
+(``runtime/engine.py``; the engine installs one for a fleet of more than
+one thread) hands its claims to that batcher instead, which stacks the
+same-shape claims of concurrent layer proofs into one multi-claim K3 call.
+Several engines may prove at once (the gateway's resident service), so
+the hook is a tuple of active batchers, replaced under a lock and read
+without one; a thread is routed to the batcher it registered with, and a
+thread that never registered makes the direct K = 1 call.
+
+Lock order (ranked in repro_torch.analysis.locks): ``_BATCHER_LOCK``,
+which guards the batcher registry, is rank 60.  It may be acquired while
+engine or scheduler locks (ranks <= 50) are held, and only rank-70 leaves
+may be taken while it is held.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -18,6 +33,31 @@ from repro_torch.kernels import sumcheck_round as K3
 
 from . import field as F
 from .transcript import Transcript
+
+_ROUND_BATCHERS: tuple = ()
+# created at import: a lock made on first use could be made twice by two
+# threads at once
+_BATCHER_LOCK = threading.Lock()
+
+
+def add_round_batcher(batcher) -> None:
+    global _ROUND_BATCHERS
+    with _BATCHER_LOCK:
+        _ROUND_BATCHERS = _ROUND_BATCHERS + (batcher,)
+
+
+def remove_round_batcher(batcher) -> None:
+    global _ROUND_BATCHERS
+    with _BATCHER_LOCK:
+        _ROUND_BATCHERS = tuple(b for b in _ROUND_BATCHERS
+                                if b is not batcher)
+
+
+def set_round_batcher(batcher) -> None:
+    """Replace the active set of batchers wholesale (None: none)."""
+    global _ROUND_BATCHERS
+    with _BATCHER_LOCK:
+        _ROUND_BATCHERS = () if batcher is None else (batcher,)
 
 
 @dataclasses.dataclass
@@ -42,6 +82,9 @@ def prove(factors: Sequence[torch.Tensor], transcript: Transcript
         return SumcheckProof(round_polys=np.zeros((0, d, 4), np.uint32),
                              final_evals=F.to_np(final_evals)), \
             torch.zeros((0, 4), dtype=F.I64, device=factors[0].device)
+    for batcher in _ROUND_BATCHERS:
+        if batcher.registered():
+            return batcher.prove(tuple(factors), transcript)
     rp, pts, finals, states = K3.prove_rounds(
         [f.unsqueeze(0).contiguous() for f in factors],
         transcript.state.reshape(1, -1))

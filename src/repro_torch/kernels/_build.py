@@ -9,9 +9,14 @@ and header plus the flags, so an edited source rebuilds and an unchanged
 one is loaded as it is.  ``build_all`` starts one nvcc per source at once.
 A missing nvcc, a failed build or a failed load raises.
 
-Lock order (ranked in repro_torch.analysis.locks): ``_LOCK`` is a rank-70
-leaf.  It is taken at a kernel's first use, possibly under the service
-lock (rank 20), and no other lock is ever acquired while it is held.
+Every wrapper counts its launches through ``bump``, so that the counts
+stay exact when several worker threads launch at once.
+
+Lock order (ranked in repro_torch.analysis.locks): ``_LOCK`` and
+``_COUNT_LOCK`` are rank-70 leaves.  ``_LOCK`` is taken at a kernel's first
+use, possibly under the service lock (rank 20); ``_COUNT_LOCK`` only
+around one counter update.  No other lock is ever acquired while either
+is held.
 """
 from __future__ import annotations
 
@@ -45,7 +50,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def bump(counts, key, n: int = 1) -> None:
+    """``counts[key] += n`` under one lock: a wrapper's launch counter (its
+    module's ``globals()``) or shape histogram (a ``Counter``)."""
+    with _COUNT_LOCK:
+        counts[key] += n
 
 
 def _nvcc() -> str:

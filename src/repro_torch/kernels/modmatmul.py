@@ -88,10 +88,13 @@ def modmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _build.ptr(a), _build.ptr(b), _build.ptr(out), M, K, N, pl.mt,
         pl.threads, _build.stream_ptr(a))
     _build.check(status, "modmatmul")
-    global launches
-    launches += 1
-    launch_shapes[(M, K, N)] += 1
+    _count(M, K, N)
     return out
+
+
+def _count(M: int, K: int, N: int) -> None:
+    _build.bump(globals(), "launches")
+    _build.bump(launch_shapes, (M, K, N))
 
 
 def partial_eval_rows_mm(mat: torch.Tensor, r_rows: torch.Tensor

@@ -185,13 +185,16 @@ def _launch(x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
             _build.ptr(x), _build.ptr(out), _build.ptr(tw), rows, log_n, L,
             pl.rows_per_block, int(inverse), _n_inv(n), _build.stream_ptr(x))
     _build.check(status, "ntt_rows")
-    global launches, long_launches
     if rows:
-        launches += pl.launches
-        if pl.split:
-            long_launches += pl.launches
-        launch_shapes[(rows, n, c)] += 1
+        _count(pl, rows, n, c)
     return out
+
+
+def _count(pl: Plan, rows: int, n: int, c: int) -> None:
+    _build.bump(globals(), "launches", pl.launches)
+    if pl.split:
+        _build.bump(globals(), "long_launches", pl.launches)
+    _build.bump(launch_shapes, (rows, n, c))
 
 
 def _pow2(v: int, what: str) -> None:

@@ -165,8 +165,7 @@ def blocks(n: int) -> int:
 
 
 def _count() -> None:
-    global launches
-    launches += 1
+    _build.bump(globals(), "launches")
 
 
 def permute_batch(states: torch.Tensor) -> torch.Tensor:

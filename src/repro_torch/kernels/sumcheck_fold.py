@@ -73,6 +73,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _count() -> None:
+    _build.bump(globals(), "launches", 2)
+
+
 def fold_round(factors: Sequence[torch.Tensor], c: torch.Tensor
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """factors: d arrays (n, 4), n a power of two >= 2; c: (4,).  Returns
@@ -89,8 +93,7 @@ def fold_round(factors: Sequence[torch.Tensor], c: torch.Tensor
     folded = torch.empty((d, half, 4), dtype=F.I64, device=dev)
     fp = [_build.ptr(f) for f in factors] + [None] * (3 - d)
     op = [_build.ptr(folded[t]) for t in range(d)] + [None] * (3 - d)
-    global launches
-    launches += 2
+    _count()
     _build.check(_lib().sf_fold_round(
         fp[0], fp[1], fp[2], d, half, _build.ptr(c), _build.ptr(partial),
         nblocks, _build.ptr(g), op[0], op[1], op[2], _build.stream_ptr(c)),

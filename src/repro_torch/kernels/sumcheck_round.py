@@ -181,7 +181,10 @@ def prove_rounds(factors: Sequence[torch.Tensor], states: torch.Tensor
         _build.ptr(states), _build.ptr(st), _build.ptr(rp), _build.ptr(cs),
         _build.ptr(finals), F.mont_int(4 * (d + 1)), F.mont_int(4 * d),
         ctypes.byref(launched), _build.stream_ptr(states))
-    global launches
-    launches += launched.value
+    _count(launched.value)
     _build.check(status, "sc_prove")
     return rp, cs, finals, st
+
+
+def _count(n: int) -> None:
+    _build.bump(globals(), "launches", n)

@@ -327,3 +327,110 @@ def test_golden_attestation_on_card(dev):
     att.__dict__.pop("_wire_cache", None)
     assert att.to_bytes(1) == gold[1]
     assert att.to_bytes(2) == gold[2]
+
+
+def _golden_toy():
+    from repro_torch.core import blocks as B
+    cfg = B.BlockCfg(family="gpt2", d=8, dff=16, heads=1, kv_heads=1, dh=8,
+                     seq=4)
+    weights = [B.init_weights(cfg, np.random.default_rng(1234))]
+    qrng = np.random.default_rng(5678)
+    query = np.clip(np.round(qrng.normal(0, 0.5, (cfg.d_pad, cfg.seq)) * 256),
+                    -32768, 32767).astype(np.int64)
+    with open(os.path.join(DATA, "golden_v2.bin"), "rb") as fh:
+        gold = fh.read()
+    return cfg, weights, query, gold
+
+
+def _golden_v2(att, gold):
+    from repro_torch import api
+    att.prove_seconds = api.Attestation.from_bytes(gold).prove_seconds
+    att.__dict__.pop("_wire_cache", None)
+    return att.to_bytes(2)
+
+
+def test_round_batcher_k2_on_card(dev):
+    """Two golden queries in one window on two worker threads: their
+    sum-checks meet in K = 2 K3 calls, and both attestations are the
+    golden bytes."""
+    from repro_torch import api
+    from repro_torch.kernels import sumcheck_round as K3
+    cfg, weights, query, gold = _golden_toy()
+    with api.ProofService([cfg], weights, default_queries=1, workers=2,
+                          name="golden-model", device=dev) as svc:
+        tok = np.arange(3, dtype=np.int32)
+        before = K3.launches
+        atts = svc.attest_many([query, query],
+                               [api.VerifyPolicy(pcs_queries=1)] * 2,
+                               [tok, tok])
+        report = svc.last_report
+    assert K3.launches > before
+    assert report.batched_claims > 0
+    assert any(k == 2 for (_, _, k) in report.wave_shapes)
+    assert [_golden_v2(a, gold) for a in atts] == [gold, gold]
+
+
+def _child_receive(device, blob):
+    """Spawned side of the IPC check: device bytes allocated before and
+    after unpickling a CUDA tensor, and the tensor's sum."""
+    import pickle
+    torch.cuda.set_device(torch.device(device))
+    torch.cuda.init()
+    before = torch.cuda.memory_allocated()
+    t = pickle.loads(blob)
+    after = torch.cuda.memory_allocated()
+    total = int(t.sum().item())
+    del t
+    return before, after, total
+
+
+def test_process_backend_ipc_without_copy(dev):
+    """A 256 MiB CUDA tensor pickled as the process backend pickles its
+    jobs crosses as an IPC handle of a few hundred bytes: the spawned
+    child reads it with its allocated memory flat, and once the child has
+    let it go the parent frees it at once (its allocation back at its
+    baseline, nothing held over for the child).  Then the golden query
+    through two worker processes gives the golden bytes, its job's payload
+    stays small with the child's allocation flat, and after ``close()``
+    the parent's allocation is back at its baseline."""
+    import gc
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing.reduction import ForkingPickler
+
+    from repro_torch import api
+    spawn = torch.multiprocessing.get_context("spawn")
+    base = torch.cuda.memory_allocated(dev)
+    x = torch.arange(1 << 25, dtype=torch.int64, device=dev)
+    want = int(x.sum().item())
+    blob = bytes(ForkingPickler.dumps(x))
+    assert len(blob) < 4096
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        before, after, total = pool.submit(_child_receive, str(dev),
+                                           blob).result()
+    assert after == before
+    assert total == want
+    del x
+    assert torch.cuda.memory_allocated(dev) == base
+
+    cfg, weights, query, gold = _golden_toy()
+    policy = api.VerifyPolicy(pcs_queries=1)
+    tok = np.arange(3, dtype=np.int32)
+
+    def service(**kw):
+        return api.ProofService([cfg], weights, default_queries=1, workers=2,
+                                name="golden-model", device=dev, **kw)
+    with service() as svc:      # the parent's lazily built constants
+        svc.attest(query, policy, tokens=tok)
+    del svc
+    gc.collect()
+    base = torch.cuda.memory_allocated(dev)
+    with service(backend="process") as svc:
+        att = svc.attest(query, policy, tokens=tok)
+        jobs = svc.last_report.process_jobs
+    del svc
+    gc.collect()
+    assert torch.cuda.memory_allocated(dev) == base
+    assert _golden_v2(att, gold) == gold
+    assert len(jobs) == 1 and jobs[0]["allocated_after_payload"] == 0
+    assert jobs[0]["launches"]["sumcheck_round"] > 0
+    assert jobs[0]["payload_bytes"] < 64 << 10
