@@ -12,13 +12,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at once.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the d=128 attestation path (K2's RS encode and
-             K4 at every shape one attest and the setup launch; K5: the
+             K4 at every shape one attest and the setup launch; K5 at the
              largest sum-check claim of that path, and a sweep of small
-             ones; K2's long rows at 2^16 and 2^17 words and the
-             verifier's 4x2^14 -> 2^16 encode), with the edge words 0, 1,
-             P-1, P-2; results must be equal element for element.  Times
-             kernel and plain version with CUDA events (K2, K4, K5 also by
-             torch.profiler).
+             ones; K2's long rows at 2^16 and 2^17 words
+             and the verifier's 4x2^14 -> 2^16 encode), with the edge words
+             0, 1, P-1, P-2; results must be equal element for element.
+             Times kernel and plain version with CUDA events (K2, K4, K5
+             also by torch.profiler).  K5 (time_k5) at d=2
+             n=2^19, d=3 n=2^17, the analysis's (16, 4) and d=2 n=2^27
+             (the TinyLlama-width opening's claim, against the plain
+             version in chunks of pairs): event ms, device ms, cold-L2
+             device ms, host us and launches per call, device operations
+             per call, both bounds.
    k1k3    — K1 and K3 at the main path's dominant shapes (a one-row
              4096-word and 4-word sponge, hash_rows 4096x512, K3 at d = 2
              and 3 for n = 1024 and d = 2 for n = 2^19): CUDA-event and
@@ -459,31 +464,29 @@ def check_kernels(dev, shapes, gen):
 
     # K5: one round with a known challenge at the largest sum-check claim
     # of the path (d = 2 over R*C, K3's timed shape), d = 3 at 2^17, the
-    # single pair n = 2, and a sweep of small n.
+    # single pair n = 2, and a sweep of small n; then time_k5 at its
+    # shapes (2^27 among them).
     def k5_case(d, n):
         fs = [rand_words(gen, (n, 4), dev) for _ in range(d)]
         c = rand_words(gen, (4,), dev)
-        (g, folded), (pg, pfolded) = K5.fold_round(fs, c), K5.fold_round_plain(fs, c)
+        pg, pfolded = K5.fold_round_plain(fs, c)
+        g, folded = K5.fold_round(fs, c)
         check(f"K5 d={d} n={n} g", g, pg)
         for t, (a, b) in enumerate(zip(folded, pfolded)):
             check(f"K5 d={d} n={n} folded[{t}]", a, b)
-        return fs, c
 
     k5_case(3, 1 << 17)
     k5_case(1, 2)
     for d in (1, 2, 3):
-        for lg in (1, 2, 3, 4, 6, 8, 10):
+        for lg in (1, 2, 3, 4, 6, 8, 9, 10, 12):
             k5_case(d, 1 << lg)
-    fs, c = k5_case(2, R * C)
-    half = R * C // 2
-    k5_words = 2 * R * C * 4 + 4 + 2 * half * 4 + 3 * 4
-    _, prof = profiled_call(lambda: [K5.fold_round(fs, c) for _ in range(20)])
+    k5_case(2, R * C)
+    k5 = time_k5(dev, gen)
+    errs["sumcheck_fold"] = max(errs["sumcheck_fold"], *(t["max_abs_err"] for t in k5))
+    t = k5[0]                                                # K5_SHAPES[0]
     rec["sumcheck_fold"] = dict(
-        ms=gpu_ms(lambda: K5.fold_round(fs, c), 20),
-        device_ms=prof["device_busy_ms"] / 20 if prof["device_busy_ms"] else None,
-        plain_ms=gpu_ms(lambda: K5.fold_round_plain(fs, c), 1),
-        bound=bound_ms(k5_words * WORD_BYTES, half * (3 * 1 + 2) * F4_MULS),
-        shape=f"fold_round d=2 n={R * C} (the weight-commitment opening's claim)")
+        ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+        bound=(t["bound_ms"], t["bound_by"]), shapes=k5, shape=t["shape"])
     for name, r in rec.items():
         r["max_abs_err"] = errs[name]
     rec["ntt"]["long_rows_max_abs_err"] = errs["ntt_long_rows"]
@@ -548,6 +551,119 @@ def k2_bound(rows: int, n: int, c: int, word_bytes: int = WORD_BYTES):
 
 def k4_bound(M: int, K: int, N: int, word_bytes: int = WORD_BYTES):
     return bound_ms((M * K + K * N + M * N) * word_bytes, M * K * N)
+
+
+def k5_bound(d: int, n: int, word_bytes: int = WORD_BYTES):
+    """One fold_round: read d n Fp4 words and c, write d n/2 folded words
+    and g; (d + 1)(d - 1) + d Fp4 products per pair."""
+    half = n // 2
+    words = d * n * 4 + 4 + d * half * 4 + (d + 1) * 4
+    return bound_ms(words * word_bytes, half * ((d + 1) * (d - 1) + d) * F4_MULS)
+
+
+# K5 at the shapes time_k5 times: (d, n, what).  The first is the timed
+# shape of the kernels line.
+K5_SHAPES = ((2, 1 << 19, "the d=128 weight-commitment opening's claim"),
+             (3, 1 << 17, "d = 3"),
+             (2, 16, "the analysis's shape"),
+             (2, 1 << 27, "the TinyLlama-width weight opening's claim"))
+K5_PLAIN_CHUNK = 1 << 22       # pairs per plain call at 2^27
+L2_FLUSH_BYTES = 256 << 20     # read between launches for the cold-L2 time
+
+
+def k5_inputs(dev, gen, d: int, n: int):
+    """d factors (n, 4) and c, made on the card, edge words planted."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(int(gen.integers(1 << 31)))
+    fs = []
+    for _ in range(d):
+        x = torch.randint(0, P, (n, 4), generator=g, device=dev)
+        x.view(-1)[:len(EDGE_WORDS)] = torch.tensor(EDGE_WORDS, device=dev)
+        fs.append(x)
+    return fs, torch.randint(0, P, (4,), generator=g, device=dev)
+
+
+def k5_err(fs, c, g, folded) -> int:
+    """Max abs err of one fold_round's (g, folded) against the plain version
+    on the same inputs: in one call, or over chunks of K5_PLAIN_CHUNK pairs
+    (the halves of each chunk as a claim of their own, g summed mod P) when
+    the whole would not fit on the card beside its inputs."""
+    import torch
+    from repro_torch.kernels import sumcheck_fold as K5
+    half = fs[0].shape[0] // 2
+    if half <= K5_PLAIN_CHUNK:
+        pg, pf = K5.fold_round_plain(fs, c)
+        return max([max_abs_err(g, pg)] + [max_abs_err(a, b) for a, b in zip(folded, pf)])
+    err, gsum = 0, torch.zeros_like(g)
+    for a in range(0, half, K5_PLAIN_CHUNK):
+        b = a + K5_PLAIN_CHUNK
+        sub = [torch.cat([f[a:b], f[half + a:half + b]]) for f in fs]
+        pg, pf = K5.fold_round_plain(sub, c)
+        gsum = (gsum + pg) % P
+        err = max([err] + [max_abs_err(x[a:b], y) for x, y in zip(folded, pf)])
+        del sub, pf
+    return max(err, max_abs_err(g, gsum))
+
+
+def time_k5(dev, gen):
+    """K5 at K5_SHAPES through ``fold_round`` (so an older checkout's
+    kernel is timed too when its ``src`` is first on ``sys.path``):
+    CUDA-event ms per call (warm: the same inputs again), device ms per
+    call and device operations per call (torch.profiler), cold-L2 device
+    ms (a 256 MB read between launches), the wrapper's host us per call,
+    launches per call, the bound (u32 words) and the int64-byte floor, the
+    plain version's ms up to 2^19, and the max abs err against the plain
+    version (any difference fails)."""
+    import torch
+    from repro_torch.kernels import sumcheck_fold as K5
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev).fill_(1)
+    out = []
+    for d, n, what in K5_SHAPES:
+        fs, c = k5_inputs(dev, gen, d, n)
+        fn = (lambda fs=fs, c=c: K5.fold_round(fs, c))
+        iters = 5 if n > 1 << 24 else 200 if n <= 1 << 10 else 50
+        before = K5.launches
+        g, folded = fn()
+        launches = K5.launches - before
+        err = k5_err(fs, c, g, folded)
+        name = f"fold_round d={d} n={n} ({what})"
+        if err != 0:
+            fail("kernels", f"K5 {name}: kernel != plain (max abs err {err})")
+        del g, folded
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us = (time.perf_counter() - t0) / iters * 1e6
+        ms = gpu_ms(fn, iters)
+
+        def warm():
+            for _ in range(iters):
+                fn()
+
+        def cold():
+            for _ in range(iters):
+                flush.sum()
+                fn()
+        _, prof = profiled_call(warm, match=("(anonymous namespace)::",))
+        kern, seen = prof["match"]["(anonymous namespace)::"]
+        _, cprof = profiled_call(cold, match=("(anonymous namespace)::",))
+        ckern, cseen = cprof["match"]["(anonymous namespace)::"]
+        bnd, by = k5_bound(d, n)
+        out.append(dict(
+            shape=name, d=d, n=n, ms=ms,
+            device_ms=kern / seen * launches if seen else None,
+            cold_ms=ckern / cseen * launches if cseen else None,
+            host_us=host_us, launches=launches,
+            device_ops=sum(t["count"] for t in prof["top"]) / iters,
+            kernel_events_seen=seen / (iters * launches),
+            bound_ms=bnd, bound_by=by, int64_floor_ms=k5_bound(d, n, INT64_BYTES)[0],
+            plain_ms=(gpu_ms(lambda fs=fs, c=c: K5.fold_round_plain(fs, c), 1)
+                      if n <= 1 << 19 else None),
+            max_abs_err=err))
+        del fs, c, fn
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_k2k4(dev, gen):
@@ -1757,7 +1873,8 @@ def main() -> int:
                           "ntt_long_rows": recs["ntt"]["long_rows_max_abs_err"]},
           "ms": {k: dict(kernel=v["ms"], plain=v["plain_ms"], shape=v["shape"],
                          kernels_device_ms=v.get("device_ms"))
-                 for k, v in recs.items()}})
+                 for k, v in recs.items()},
+          "k5": recs["sumcheck_fold"]["shapes"]})
 
     t0 = time.monotonic()
     k1k3 = time_k1k3(dev, np.random.default_rng(SEED + 1))

@@ -281,16 +281,31 @@ def test_k2_k4_threads(dev):
 
 
 def test_k5_sumcheck_fold(dev):
+    """Against the plain version, one launch a call; 2^24 pairs' worth of
+    words takes 64-bit offsets past 2^31 bytes."""
     from repro_torch.kernels import sumcheck_fold as K5
     cases = [(d, lg) for d in (1, 2, 3) for lg in (1, 2, 3, 5, 8, 9, 12, 17)]
-    cases += [(2, 19), (1, 20)]        # more pairs than threads in the grid
+    cases += [(2, 19), (1, 20), (2, 24)]   # more pairs than threads in the grid
     for d, lg in cases:
         fs = [_words(1000 * d + 10 * lg + t, (1 << lg, 4), dev)
               for t in range(d)]
         c = _words(7 * lg + d, (4,), dev)
-        (g, folded), (pg, pfolded) = K5.fold_round(fs, c), K5.fold_round_plain(fs, c)
-        assert _same(g, pg)
+        pg, pfolded = K5.fold_round_plain(fs, c)
+        before = K5.launches
+        g, folded = K5.fold_round(fs, c)
+        assert K5.launches - before == 1, (d, lg)
+        assert _same(g, pg), (d, lg)
         assert len(folded) == d and all(_same(a, b) for a, b in zip(folded, pfolded))
+        del fs, pfolded, folded
+    # the 16-byte loads need 16-byte aligned operands: a view one int64
+    # word in raises
+    words = _words(5, (65 * 4,), dev)
+    skew = words[1:1 + 64 * 4].view(64, 4)
+    c = _words(6, (4,), dev)
+    with pytest.raises(ValueError, match="aligned"):
+        K5.fold_round([skew, skew], c)
+    with pytest.raises(ValueError, match="aligned"):
+        K5.fold_round([words[:64 * 4].view(64, 4)], words[1:5])
 
 
 def test_analysis_cli_on_card(dev):

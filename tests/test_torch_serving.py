@@ -362,7 +362,7 @@ def test_launch_counters_exact_under_threads():
     assert K2.long_launches - before["K2L"] == 2 * total
     assert K3.launches - before["K3"] == 3 * total
     assert K4.launches - before["K4"] == total
-    assert K5.launches - before["K5"] == 2 * total
+    assert K5.launches - before["K5"] == total
     assert K2.launch_shapes[(3, 1 << 16, 1 << 14)] - before["s2"] == total
     assert K4.launch_shapes[(4, 5, 6)] - before["s4"] == total
 
