@@ -117,6 +117,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              attests; peak device memory by stage in the parent and in
              each child; the parent's allocation back at its baseline
              once the process-backed service is closed.
+11. matmul_proof — ``core.matmul_proof`` prove and verify for C = A.B at
+             (n, k, m) = (8, 2048, 2048), a TinyLlama-width projection at
+             seq 8: the proof and its three claims equal the same call on
+             the CPU word for word, a flipped c_claim is rejected; prove
+             and verify ms and the K3/K4 launches (counts zeroed just
+             before the timed prove, read just after).
+12. model  — ``launch.serve.generate`` at full width: TinyLlama-1.1B (22
+             layers, d=2048, 32 heads on 4 KV heads, vocab 32000) and
+             GPT-2 Small (12 layers, d=768, vocab 50257), bf16, random
+             weights from a torch.Generator; batch 2, a 16-token prompt,
+             16 new tokens, LUT ops on and off.  Logits finite, tokens in
+             [0, vocab), the cached decode's last token the argmax of a
+             no-cache forward over the same tokens (a bf16 near-tie
+             within ARGMAX_TIE accepted and reported); prefill ms, decode
+             ms per token, tokens/s, peak allocated bytes.
+13. serve_cli — ``launch.serve.emit_attestation`` of the serving golden's
+             tokens on the card, its files equal to
+             tests/data/golden_serve_v{1,2}.bin and sidecars
+             (tests/data/gen_golden_serve.py; K1-K4 must launch); then
+             ``python -m repro_torch.launch.serve --arch gpt2_small
+             --with-proof --emit`` and ``--verify-file --stream-verify``
+             in two fresh processes, each exiting 0 with verified=True;
+             the seconds of each.
 
 Then one ``{"kernels": [...]}`` line (K3's multi-claim calls as a row of
 their own), the nvidia-smi line, and the final ``{"ok": true, "device":
@@ -213,6 +236,24 @@ GATEWAY_WINDOW_SECONDS = 0.5
 SERVE_WORKERS = 2
 PROCESS_ATTESTS = 3
 LLAMA_BATCH = 2
+
+# The matmul sum-check at a TinyLlama-width projection (d=2048) at seq 8.
+MATMUL_SHAPE = (8, 2048, 2048)
+# The float model at full width: the paper's two evaluation models
+# (src/repro_torch/configs/{tinyllama_1_1b,gpt2_small}.py, all their layers,
+# bf16), random weights; the embedding scaled as tests/test_torch_models.py
+# scales it; a near-tie of the bf16 argmax is accepted within ARGMAX_TIE of
+# the largest |logit|.
+MODEL_ARCHS = ("tinyllama_1_1b", "gpt2_small")
+MODEL_BATCH = 2
+MODEL_PROMPT = 16
+MODEL_NEW_TOKENS = 16
+EMBED_SCALE = 50.0
+ARGMAX_TIE = 2.0 ** -6
+# The serving CLI's demo attestation (tests/data/gen_golden_serve.py).
+SERVE_CLI_QUERIES = 8
+SERVE_CLI_LAYERS = 2
+SERVE_CLI_TIMEOUT = 300
 
 
 def emit(obj) -> None:
@@ -1757,6 +1798,227 @@ def llama_batch_phase(dev, weights, cache, twins):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: the matmul sum-check, the float model, the serving CLI.
+# ---------------------------------------------------------------------------
+def matmul_proof_phase(dev):
+    """``core.matmul_proof`` prove and verify for C = A.B at MATMUL_SHAPE
+    (a TinyLlama-width projection at seq 8) on the card; the proof and its
+    three claims equal the same call on the CPU (the kernels' plain
+    versions) word for word, and a flipped c_claim is rejected."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import field as F
+    from repro_torch.core import matmul_proof as MM
+    from repro_torch.core.transcript import Transcript
+    n, k, m = MATMUL_SHAPE
+    rng = np.random.default_rng(SEED + 5)
+    A = rng.integers(-(1 << 15), 1 << 15, (n, k))
+    Bm = rng.integers(-(1 << 15), 1 << 15, (k, m))
+    Cm = A @ Bm                          # |entries| < k 2^30 < 2^41: exact
+    names = ("A", "B", "C")
+
+    def prove(device):
+        ops = [F.f_from_int(x, device) for x in (A, Bm, Cm)]
+        return MM.prove("A", ops[0], "B", ops[1], "C", ops[2],
+                        Transcript("matmul", device=device))
+
+    def verify(pf, device):
+        return MM.verify(pf, (n, k, m), names, Transcript("matmul", device=device))
+
+    prove(dev)                           # warm-up: the first launches
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    pf, claims = prove(dev)
+    torch.cuda.synchronize(dev)
+    prove_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    ok, vclaims = verify(pf, dev)
+    torch.cuda.synchronize(dev)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        fail("matmul_proof", "the card's verifier rejected the card's proof")
+    cpu_pf, cpu_claims = prove(torch.device("cpu"))
+
+    def words(p, cl):
+        return [p.c_claim, p.sumcheck.round_polys, p.sumcheck.final_evals] + \
+            [a for c in cl for a in (c.point, c.value)]
+    for a, b in zip(words(pf, claims) + words(pf, vclaims),
+                    words(cpu_pf, cpu_claims) * 2):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail("matmul_proof", "the card's proof or claims differ from the "
+                 "CPU's")
+    if [c.tensor for c in claims] != ["C", "A", "B"]:
+        fail("matmul_proof", f"claims name {[c.tensor for c in claims]}")
+    bad = dataclasses.replace(pf, c_claim=pf.c_claim ^ np.uint32(1))
+    if verify(bad, dev)[0]:
+        fail("matmul_proof", "verify accepted a flipped c_claim")
+    idle = [name for name in ("sumcheck_round", "modmatmul") if launches[name] == 0]
+    if idle:
+        fail("matmul_proof", f"kernels never launched on the matmul path: {idle}")
+    return dict(shape=[n, k, m], prove_ms=prove_ms, verify_ms=verify_ms,
+                launches=launches, rounds=int(pf.sumcheck.round_polys.shape[0]))
+
+
+def model_phase(dev):
+    """``launch.serve.generate`` at full width for each of MODEL_ARCHS
+    (bf16, weights from a torch.Generator seeded with SEED, the embedding
+    scaled by EMBED_SCALE as the CPU tests do so that the LUT path runs in
+    its tables' domains): batch 2, a 16-token prompt, 16 new tokens, with
+    the LUT ops on and off.  Logits finite, tokens in [0, vocab), and the
+    last cached decode step's token is the argmax of a no-cache forward
+    over the same tokens (or within ARGMAX_TIE of it: a bf16 near-tie).
+    Prefill ms, decode ms per token, tokens/s, peak allocated bytes."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    out = {}
+    for arch in MODEL_ARCHS:
+        cfg = get_arch(arch).cfg
+        sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.monotonic()
+        params = M.init(cfg, sh, gen, dev)
+        params["embed"] = params["embed"] * EMBED_SCALE
+        prompt = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                               generator=gen, device=dev)
+        init_s = time.monotonic() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        rec = dict(layers=cfg.n_layers, d=cfg.d, heads=cfg.heads,
+                   kv_heads=cfg.kv_heads, vocab=cfg.vocab, params=n_params,
+                   dtype=str(cfg.dtype), init_seconds=init_s, runs={})
+        sc = S.ServeCfg(max_new_tokens=MODEL_NEW_TOKENS)
+        for use_lut in (True, False):
+            S.generate(cfg, sh, params, prompt, sc, use_lut=use_lut)   # warm
+            stats = {}
+            toks = S.generate(cfg, sh, params, prompt, sc, use_lut=use_lut,
+                              stats=stats)
+            if tuple(toks.shape) != (MODEL_BATCH, MODEL_NEW_TOKENS):
+                fail("model", f"{arch}: tokens of shape {tuple(toks.shape)}")
+            if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+                fail("model", f"{arch}: a token outside [0, {cfg.vocab})")
+            full = torch.cat([prompt, toks[:, :-1]], dim=1)
+            with torch.no_grad():
+                logits, _, _ = M.forward(cfg, sh, params, full, use_lut=use_lut)
+            last = logits[:, -1, :cfg.vocab].float()
+            if not bool(torch.isfinite(logits).all()):
+                fail("model", f"{arch} use_lut={use_lut}: non-finite logits")
+            top = last.max(dim=-1).values
+            picked = last.gather(1, toks[:, -1:])[:, 0]
+            gap = float((top - picked).max())
+            tie = ARGMAX_TIE * float(last.abs().max())
+            agree = bool(torch.equal(last.argmax(dim=-1), toks[:, -1]))
+            if not agree and gap > tie:
+                fail("model", f"{arch} use_lut={use_lut}: the cached decode's "
+                     f"token trails the no-cache argmax by {gap} (> {tie})")
+            total = stats["prefill_seconds"] + stats["decode_seconds"]
+            rec["runs"]["lut" if use_lut else "exact"] = dict(
+                prefill_ms=stats["prefill_seconds"] * 1e3,
+                decode_ms_per_token=stats["decode_seconds"] * 1e3
+                / stats["decode_steps"],
+                tokens_per_s=MODEL_BATCH * MODEL_NEW_TOKENS / total,
+                argmax_equal=agree, argmax_gap=gap,
+                distinct_tokens=int(toks.unique().numel()))
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        out[arch] = rec
+        del params, logits
+        progress("model", f"{arch} done", t0)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_cli_phase(dev):
+    """``launch.serve.emit_attestation`` of the serving golden's tokens on
+    the card: its files equal tests/data/golden_serve_v2.bin{,.card,
+    .policy,.query.npy} (the attestation with the golden's prove_seconds)
+    and the v1 re-encoding golden_serve_v1.bin.  Then the CLI in two fresh
+    processes: ``--with-proof --emit`` and ``--verify-file
+    --stream-verify``, each exiting 0 and printing verified=True."""
+    import tempfile
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.launch import serve as S
+    gold_path = os.path.join(DATA, "golden_serve_v2.bin")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "att.bin")
+        policy = api.VerifyPolicy(pcs_queries=SERVE_CLI_QUERIES)
+        # the attestation object, for its v1 envelope (a decoded v2 tape
+        # no longer carries its opened columns inline)
+        attested = []
+        attest = api.ProofService.attest
+
+        def recording_attest(self, *args, **kw):
+            attested.append(attest(self, *args, **kw))
+            return attested[-1]
+        api.ProofService.attest = recording_attest
+        reset_counts()
+        t0 = time.monotonic()
+        try:
+            rep = S.emit_attestation(path, np.arange(16), policy,
+                                     layers=SERVE_CLI_LAYERS, device=dev)
+        finally:
+            api.ProofService.attest = attest
+        out["emit_seconds"] = time.monotonic() - t0
+        out["launches"] = launch_counts()
+        if not rep.ok:
+            fail("serve_cli", f"self-check rejected: {rep.reason}")
+        for suffix in (".card", ".policy", ".query.npy"):
+            with open(path + suffix, "rb") as a, open(gold_path + suffix, "rb") as b:
+                if a.read() != b.read():
+                    fail("serve_cli", f"{suffix} differs from the golden's")
+        with open(gold_path, "rb") as fh:
+            gold_v2 = fh.read()
+        with open(os.path.join(DATA, "golden_serve_v1.bin"), "rb") as fh:
+            gold_v1 = fh.read()
+        (att,) = attested
+        with open(path, "rb") as fh:
+            if fh.read() != att.to_bytes(2, device=dev):
+                fail("serve_cli", "the written attestation is not the attest's")
+        att.prove_seconds = api.Attestation.from_bytes(
+            gold_v2, device=dev).prove_seconds
+        att.__dict__.pop("_wire_cache", None)
+        if att.to_bytes(2, device=dev) != gold_v2 or \
+                att.to_bytes(1, device=dev) != gold_v1:
+            fail("serve_cli", "attestation bytes differ from golden_serve_v1/v2")
+        idle = [n for n in SERVE_KERNELS if out["launches"][n] == 0]
+        if idle:
+            fail("serve_cli", f"kernels never launched on the CLI's path: {idle}")
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+                   os.environ.get("PYTHONPATH", ""))
+        cli = [sys.executable, "-m", "repro_torch.launch.serve"]
+        for step, args in (
+                ("emit", ["--arch", "gpt2_small", "--with-proof",
+                          "--emit", os.path.join(tmp, "cli.bin")]),
+                ("verify", ["--verify-file", os.path.join(tmp, "cli.bin"),
+                            "--stream-verify"])):
+            t0 = time.monotonic()
+            r = subprocess.run(cli + args, capture_output=True, text=True,
+                               env=env, cwd=tmp, timeout=SERVE_CLI_TIMEOUT)
+            out[f"cli_{step}_seconds"] = time.monotonic() - t0
+            tail = (r.stdout + r.stderr)[-2000:]
+            if r.returncode != 0 or "verified=True" not in r.stdout:
+                fail("serve_cli", f"CLI {step} exited {r.returncode}: {tail}")
+            out[f"cli_{step}_last_line"] = r.stdout.strip().splitlines()[-1]
+    return out
+
+
 def profiled_call(fn, *args, match=()):
     """Run fn under torch.profiler, tracing device activity only; report
     the device's busy time (the sum of kernel times) against the wall
@@ -1965,6 +2227,26 @@ def main() -> int:
     idle = [n for n in SERVE_KERNELS if lb_launches[n] == 0]
     if idle:
         fail("llama_batch", f"kernels never launched on the llama_batch path: {idle}")
+
+    # the float model and the serving CLI: the llama phases' weights and
+    # commitments go first
+    del llama_weights, llama_cache, llama_twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    mm = matmul_proof_phase(dev)
+    emit({"phase": "matmul_proof", "ok": True, "seconds": time.monotonic() - t0,
+          **mm})
+
+    t0 = time.monotonic()
+    model = model_phase(dev)
+    emit({"phase": "model", "ok": True, "seconds": time.monotonic() - t0,
+          "nvidia_smi": smi_line, "models": model})
+
+    t0 = time.monotonic()
+    cli = serve_cli_phase(dev)
+    emit({"phase": "serve_cli", "ok": True, "seconds": time.monotonic() - t0,
+          **cli})
 
     kernels = []
     for name, _, src, replaces in kernel_modules():

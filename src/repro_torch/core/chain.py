@@ -3,7 +3,9 @@
 
 A ModelProof is the layer proofs plus the boundary roots c_0 .. c_L;
 verification checks every layer proof against its weight root and the
-Eq. 3 adjacency c_out(pi_l) == c_in(pi_{l+1}).
+Eq. 3 adjacency c_out(pi_l) == c_in(pi_{l+1}).  ``prove_model`` is the
+JAX package's legacy shim over the staged prover engine; new callers use
+``repro_torch.api.ProofService``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,27 @@ class ModelProof:
     layer_proofs: List[LP.LayerProof]
     boundary_roots: List[np.ndarray]     # c_0 .. c_L
     wt_roots: List[np.ndarray]
+
+    def size_bytes(self) -> int:
+        return sum(p.size_bytes() for p in self.layer_proofs)
+
+
+def prove_model(cfgs: Sequence[B.BlockCfg],
+                weights_raw: Sequence[Dict[str, np.ndarray]],
+                wt_commits: Sequence[LP.WeightCommit],
+                x0: np.ndarray, params: PCS.PCSParams,
+                layer_subset: Optional[Sequence[int]] = None,
+                workers: int = 1, device=None) -> ModelProof:
+    """Run the quantized forward chain and prove every (selected) layer:
+    a thin wrapper over ``runtime.engine.ProverEngine`` (forward replay,
+    one batched boundary commit, per-layer proofs on ``workers``
+    threads).  Proving is Fiat-Shamir deterministic, so any worker count
+    gives the same transcripts."""
+    from repro_torch.runtime.engine import ProverEngine  # runtime sits above core
+    with ProverEngine(cfgs, weights_raw, params, wt_commits=wt_commits,
+                      workers=workers, device=device) as eng:
+        proof, _report = eng.prove(x0, layer_subset=layer_subset)
+    return proof
 
 
 def verify_model(cfgs: Sequence[B.BlockCfg], proof: ModelProof,

@@ -41,10 +41,12 @@ def tensor(x, device) -> torch.Tensor:
 
 
 def to_np(a) -> np.ndarray:
-    """int64 residue tensor (or array) -> numpy uint32 (the wire form)."""
+    """int64 residue tensor (or array) -> numpy uint32 (the wire form), in
+    C order as a JAX array's host copy is (a transposed view would give a
+    Fortran-ordered array, which pickles apart from the JAX package's)."""
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
-    return np.asarray(a).astype(np.uint32)
+    return np.asarray(a).astype(np.uint32, order="C")
 
 
 # ---------------------------------------------------------------------------

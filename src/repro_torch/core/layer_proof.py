@@ -8,6 +8,7 @@ range proofs are made once at setup and reused across queries.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -51,6 +52,12 @@ class LayerProof:
     out_root: np.ndarray               # c_l
     wt_root: np.ndarray
     tape: List
+
+    def size_bytes(self) -> int:
+        """Pickled size of the tape (numpy throughout).  A pickle names
+        each class by its module path, so this differs from the JAX
+        package's count only by the longer ``repro_torch`` paths."""
+        return len(pickle.dumps(self.tape))
 
 
 def _host(x) -> Optional[np.ndarray]:

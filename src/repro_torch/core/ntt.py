@@ -57,6 +57,10 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return K2.ntt_rows(flat, inverse).reshape(x.shape)
 
 
+def intt(x: torch.Tensor) -> torch.Tensor:
+    return ntt(x, inverse=True)
+
+
 def rs_encode(rows: torch.Tensor, blowup: int) -> torch.Tensor:
     """Reed-Solomon encode each row (trailing axis) at rate 1/blowup: the
     row is taken as polynomial coefficients (degree < c) and evaluated on

@@ -63,6 +63,53 @@ def lut_apply(name: str, idx: torch.Tensor):
     return LUTS.table_tensor(name, idx.device)[i], i
 
 
+def q_layernorm(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
+                subtract_mean: bool = True) -> Dict[str, torch.Tensor]:
+    """x: (d, seq) f8 -> y: (d, seq) f8, with the full trace:
+      mu   = round(colsum(x)/d)                        [if subtract_mean]
+      xc   = x - mu
+      ms   = round(colsum(xc^2) / (d 2^4))             rsqrt LUT input, f=12
+      rst  = rsqrtLUT(ms)                              f=11
+      xn   = round(xc rst / 2^11)                      f=8
+      y    = round((xn g + 2^8 b) / 2^8)               f=8
+    The divisions are floor divisions of int64 tensors, as numpy's."""
+    d, seq = x.shape
+    x = x.to(torch.int64)
+    tr: Dict[str, torch.Tensor] = {}
+    if subtract_mean:
+        s1 = x.sum(dim=0)                          # (seq,)
+        mu = torch.div(s1 + d // 2, d, rounding_mode="floor")
+        tr["mu"] = assert16(mu, "ln mu")
+        tr["e1"] = s1 + d // 2 - d * mu
+        lo, hi = _minmax(tr["e1"])
+        assert lo >= 0 and hi < d
+        xc = x - mu[None, :]
+    else:
+        xc = x
+    assert int(xc.abs().max().item()) < (1 << 15), "ln xc exceeds range"
+    sq = (xc * xc).sum(dim=0)                      # (seq,) f16, < d*2^30
+    D = d << 4                                     # -> ms at f=12
+    ms = torch.div(sq + D // 2, D, rounding_mode="floor")
+    tr["e2"] = sq + D // 2 - D * ms
+    lo, hi = _minmax(ms)
+    assert lo >= 0 and hi < (1 << 16), \
+        f"ln mean-square out of rsqrt domain: max {hi / 4096.0}"
+    tr["ms"] = ms
+    rst, _ = lut_apply("rsqrt", ms)                # f=11, <= 20480
+    tr["rst"] = rst
+    xn_acc = xc * rst[None, :]
+    xn = assert16(rshift_round(xn_acc, 11), "ln xn")
+    tr["xn"] = xn
+    tr["err_xn"] = xn_acc + (1 << 10) - shl(xn, 11)
+    y_acc = xn * g.to(torch.int64)[:, None]
+    if b is not None:
+        y_acc = y_acc + shl(b.to(torch.int64)[:, None], F8)
+    y = assert16(rshift_round(y_acc, F8), "ln y")
+    tr["y"] = y
+    tr["err_y"] = y_acc + (1 << 7) - shl(y, F8)
+    return tr
+
+
 def q_matmul_rescale(wT: torch.Tensor, x: torch.Tensor,
                      b: Optional[torch.Tensor], shift: int
                      ) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,258 @@
+"""Model assembly for the float serving path (mirrors ``repro.models.model``).
+
+A ModelCfg is a per-layer program; the port runs its attention decoders
+(dense MLP, GQA, sliding windows, tied or untied heads, learned or rotary
+positions).  One ``forward`` covers prefill and decode; caches are a list
+with one dict per layer.  ``forward`` runs the plain layer loop: the JAX
+package's scan-over-layers (``scan_layers``, ``scan_split``,
+``_stack_defs``) is a compile-time device with the same numbers and is not
+ported.
+
+Mamba, mLSTM/sLSTM, the MoE, M-RoPE and the encoder (with its
+cross-attention) are not ported yet: a config that needs one raises
+``NotImplementedError`` (ROADMAP Queue 1 item 7) and never falls back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import layers as L
+from .layers import P
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str = "attn"            # attn | mamba | mlstm | slstm
+    window: int = 0               # sliding window size (attn only)
+    rope_base: float = 1e6
+    moe: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderCfg:
+    n_layers: int
+    frames: int = 1500            # whisper stub frontend length
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    name: str
+    d: int
+    n_layers: int
+    heads: int
+    kv_heads: int
+    dh: int
+    d_ff: int
+    vocab: int
+    layers: Tuple[LayerSpec, ...]
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    gated_mlp: bool = True
+    qkv_bias: bool = False
+    rope: str = "rope"            # none | rope | mrope
+    softcap: float = 0.0
+    n_experts: int = 0
+    top_k: int = 0
+    moe_ff: int = 0               # per-expert hidden (defaults d_ff)
+    moe_dispatch: str = "sort"    # 'sort' | 'einsum'
+    tie_embeddings: bool = False
+    pos_embed: int = 0            # learned absolute positions (gpt2/whisper)
+    encoder: Optional[EncoderCfg] = None
+    max_seq: int = 131072
+    attn_tp: bool = True
+    dtype: Any = torch.bfloat16
+
+    @property
+    def vocab_padded(self) -> int:
+        return ((self.vocab + 255) // 256) * 256
+
+    def attn_cfg(self, spec: LayerSpec, causal=True) -> L.AttnCfg:
+        return L.AttnCfg(d=self.d, heads=self.heads, kv_heads=self.kv_heads,
+                         dh=self.dh, qkv_bias=self.qkv_bias,
+                         rope=self.rope, rope_base=spec.rope_base,
+                         window=spec.window, causal=causal,
+                         softcap=self.softcap)
+
+    def mlp_cfg(self) -> L.MlpCfg:
+        return L.MlpCfg(d=self.d, d_ff=self.d_ff, act=self.act,
+                        gated=self.gated_mlp)
+
+    def shard_cfg(self, dp: Tuple[str, ...] = ("data",), tp_size: int = 16,
+                  dp_size: int = 16, cache_seq: Tuple[str, ...] = (),
+                  cache_seq_size: int = 1, batch_dp: bool = True
+                  ) -> L.ShardCfg:
+        return L.ShardCfg(dp=dp, tp_size=tp_size, dp_size=dp_size,
+                          cache_seq=cache_seq,
+                          cache_seq_size=cache_seq_size, batch_dp=batch_dp,
+                          attn_tp=self.attn_tp and
+                          (self.heads % tp_size == 0))
+
+
+def check_supported(cfg: ModelCfg) -> None:
+    """Raise NotImplementedError for a config that needs a part of the
+    model zoo that is not ported yet."""
+    if cfg.encoder is not None:
+        raise L.not_ported("the encoder and its cross-attention")
+    if cfg.rope == "mrope":
+        raise L.not_ported("M-RoPE (layers.apply_mrope)")
+    for spec in cfg.layers:
+        if spec.moe:
+            raise L.not_ported("the MoE (layers.moe)")
+        if spec.kind == "mamba":
+            raise L.not_ported("Mamba (models.mamba)")
+        if spec.kind in ("mlstm", "slstm"):
+            raise L.not_ported("xLSTM (models.xlstm)")
+        if spec.kind != "attn":
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions.
+# ---------------------------------------------------------------------------
+def _layer_defs(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg) -> Dict:
+    d = {"n1": L.norm_defs(cfg.norm, cfg.d),
+         "mix": L.attn_defs(cfg.attn_cfg(spec), sh)}
+    if cfg.d_ff > 0:
+        d["n2"] = L.norm_defs(cfg.norm, cfg.d)
+        d["ffn"] = L.mlp_defs(cfg.mlp_cfg(), sh)
+    return d
+
+
+def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
+    check_supported(cfg)
+    V = cfg.vocab_padded
+    tp = sh.tp if V % sh.tp_size == 0 else None
+    defs: Dict[str, Any] = {
+        "embed": L.ParamDef((V, cfg.d), P(tp, sh.fs(cfg.d)), 0.02),
+        "layers": [_layer_defs(cfg, spec, sh) for spec in cfg.layers],
+        "final_norm": L.norm_defs(cfg.norm, cfg.d),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = L.ParamDef((cfg.d, V), P(sh.fs(cfg.d), tp),
+                                     1.0 / math.sqrt(cfg.d))
+    if cfg.pos_embed:
+        defs["pos"] = L.ParamDef((cfg.pos_embed, cfg.d), P(None, None), 0.01)
+    return defs
+
+
+def init(cfg: ModelCfg, sh: L.ShardCfg, gen: torch.Generator, device=None):
+    """Random parameters from ``gen`` on ``device`` (see layers.init_params)."""
+    return L.init_params(model_defs(cfg, sh), gen, device)
+
+
+def params_from_numpy(cfg: ModelCfg, tree, sh: Optional[L.ShardCfg] = None,
+                      device=None):
+    """The JAX package's parameter tree, leaves as numpy, as the port's:
+    the same nesting and shapes, each leaf at its def's dtype on
+    ``device``.  A bfloat16 leaf (an ``ml_dtypes`` array, which
+    ``torch.from_numpy`` refuses) goes through float32, which holds every
+    bfloat16 value exactly."""
+    dev = resolve_device(device)
+    defs = model_defs(cfg, sh if sh is not None else L.ShardCfg())
+
+    def walk(d, t, path):
+        if isinstance(d, L.ParamDef):
+            arr = np.asarray(t)
+            if tuple(arr.shape) != tuple(d.shape):
+                raise ValueError(f"{path}: shape {arr.shape} != {d.shape}")
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=dev, dtype=d.dtype)
+        if isinstance(d, dict):
+            if sorted(d) != sorted(t):
+                raise ValueError(f"{path}: keys {sorted(t)} != {sorted(d)}")
+            return {k: walk(d[k], t[k], f"{path}.{k}") for k in d}
+        if len(d) != len(t):
+            raise ValueError(f"{path}: {len(t)} entries != {len(d)}")
+        return [walk(a, b, f"{path}[{i}]") for i, (a, b) in enumerate(zip(d, t))]
+    return walk(defs, tree, "params")
+
+
+# ---------------------------------------------------------------------------
+# Forward.
+# ---------------------------------------------------------------------------
+def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[List] = None, use_lut: bool = False,
+            enc_input: Optional[torch.Tensor] = None,
+            remat: bool = False
+            ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
+    """tokens: (B, S) int -> logits (B, S, vocab_padded).  Returns (logits,
+    new_caches, aux_loss).  ``remat`` (JAX rematerialisation under
+    autodiff) changes no number and is accepted for the signature."""
+    check_supported(cfg)
+    if enc_input is not None:
+        raise L.not_ported("the encoder and its cross-attention")
+    B, S = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(S, device=dev)
+    h = params["embed"].to(cfg.dtype)[tokens]
+    if cfg.pos_embed:
+        pos_table = params["pos"].to(cfg.dtype)
+        h = h + pos_table[torch.clamp(positions, 0, cfg.pos_embed - 1)]
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    new_caches: Optional[List] = [] if caches is not None else None
+    for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
+        cache = caches[i] if caches is not None else None
+        hn = L.apply_norm(cfg.norm, lp["n1"], h, use_lut)
+        out, new_cache = L.attention(cfg.attn_cfg(spec), sh, lp["mix"], hn,
+                                     positions, use_lut, cache)
+        h = h + out
+        if "ffn" in lp:
+            hf = L.apply_norm(cfg.norm, lp["n2"], h, use_lut)
+            h = h + L.mlp(cfg.mlp_cfg(), sh, lp["ffn"], hf, use_lut)
+        if new_caches is not None:
+            new_caches.append(new_cache)
+
+    h = L.apply_norm(cfg.norm, params["final_norm"], h, use_lut)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cfg.dtype)
+    logits = torch.matmul(h, head)
+    return logits, new_caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Loss and decode.
+# ---------------------------------------------------------------------------
+def loss_fn(cfg: ModelCfg, sh: L.ShardCfg, params, tokens, labels,
+            enc_input=None, use_lut: bool = False, remat: bool = True
+            ) -> torch.Tensor:
+    """Mean next-token NLL over labels >= 0 (+ 0.01 x the MoE aux loss)."""
+    logits, _, aux = forward(cfg, sh, params, tokens, enc_input=enc_input,
+                             use_lut=use_lut, remat=remat)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = labels >= 0
+    nll = torch.sum((logz - ll) * mask) / torch.clamp(mask.sum(), min=1)
+    return nll + 0.01 * aux
+
+
+def _one_cache(cfg: ModelCfg, spec: LayerSpec, batch: int, max_len: int,
+               device):
+    return L.make_kv_cache(cfg.attn_cfg(spec), batch, max_len, cfg.dtype,
+                           device)
+
+
+def make_caches(cfg: ModelCfg, sh: L.ShardCfg, batch: int, max_len: int,
+                device=None):
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [_one_cache(cfg, spec, batch, max_len, dev) for spec in cfg.layers]
+
+
+def decode_step(cfg: ModelCfg, sh: L.ShardCfg, params, token, pos, caches,
+                enc_input=None, use_lut: bool = False):
+    """token: (B, 1); pos: (B,) current positions.  One serve step."""
+    logits, new_caches, _ = forward(cfg, sh, params, token,
+                                    positions=pos[:, None], caches=caches,
+                                    enc_input=enc_input, use_lut=use_lut)
+    return logits[:, -1], new_caches
