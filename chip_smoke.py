@@ -86,7 +86,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at 512 rows.
 
 8. gateway — the serving tier on the serve phase's chain: two clients
-             each send 4 queries at once (one connection a query) to an
+             each send 2 queries at once (one connection a query) to an
              AttestationGateway (windows of up to 4) over
              ProofService(workers=2), on a socket on 127.0.0.1; each
              request stream-verifies as its chunks arrive.  Every
@@ -140,6 +140,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              --with-proof --emit`` and ``--verify-file --stream-verify``
              in two fresh processes, each exiting 0 with verified=True;
              the seconds of each.
+14. train  — ``launch.train.train`` at full width and depth, bf16 weights
+             from TrainCfg's seed, batch 8 x seq 128 in 2 microbatches,
+             int8 gradient compression on: GPT-2 Small 20 steps to a
+             checkpoint at step 20, then a second ``train`` on the same
+             directory that must resume at 20 and run to 40 (its last
+             loss below the first run's first), then 4 steps with remat
+             off; TinyLlama-1.1B 4 steps with remat on and 4 with it off
+             (finite losses, no checkpoint).  Per run: step ms (median
+             after the first), tokens/s, the 6 N tokens FLOP estimate and
+             its share of the 989 TFLOP/s bf16 peak, the pipeline's host
+             ms per batch, peak allocated bytes; for GPT-2 the checkpoint's
+             bytes, ``save_async``, ``wait_pending`` and ``restore``
+             seconds; one step of each model under torch.profiler (the
+             device's busy share, kernel launches); one JSON line a
+             model, then the phase's own line.  First, the smoke
+             config's ``make_train_step`` at float32 on the card against
+             the CPU: 3 steps without compression and 1 with, losses and
+             grad norms within rtol 1e-4, weights within
+             tests/test_torch_train_step.py's bound.  No kernel of the
+             port runs here: the training step is PyTorch's matmuls and
+             autograd, as the JAX package's is plain ``jnp``.
 
 Then one ``{"kernels": [...]}`` line (K3's multi-claim calls as a row of
 their own), the nvidia-smi line, and the final ``{"ok": true, "device":
@@ -150,6 +171,7 @@ from __future__ import annotations
 import gc
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -223,14 +245,16 @@ LLAMA_FISHER_RTOL = 1e-5       # card against CPU, as tests/test_torch_fisher.py
 LLAMA_VOCAB = 64               # the Fisher function's readout classes
 
 # The serving tier on the served d=128 chain: 2 attests at ProofService's
-# default worker count; two clients each send 4 queries at once
-# (serve_query(0..7), one connection per query) through a gateway over
-# ProofService(workers=2), windows of up to 4; the process backend answers
+# default worker count; two clients each send 2 queries at once
+# (serve_query(0..3), one connection per query; 2, not more, to keep the
+# whole smoke well inside its 1200 s with the train phase)
+# through a gateway over ProofService(workers=2), windows of up to 4; the
+# process backend answers
 # 3 attests on 2 worker processes; the llama chain answers 2 queries in one
 # attest_many window on 2 threads, then 1 attest on 2 worker processes.
 DEFAULT_WORKER_ATTESTS = 2
 GATEWAY_CLIENTS = 2
-GATEWAY_QUERIES_PER_CLIENT = 4
+GATEWAY_QUERIES_PER_CLIENT = 2
 GATEWAY_MAX_BATCH = 4
 GATEWAY_WINDOW_SECONDS = 0.5
 SERVE_WORKERS = 2
@@ -254,6 +278,28 @@ ARGMAX_TIE = 2.0 ** -6
 SERVE_CLI_QUERIES = 8
 SERVE_CLI_LAYERS = 2
 SERVE_CLI_TIMEOUT = 300
+# Training at full width and depth (src/repro_torch/configs/{gpt2_small,
+# tinyllama_1_1b}.py CFG, random weights from TrainCfg's seed):
+# launch.train.train with batch 8 x seq 128 in 2 microbatches, int8
+# gradient compression; GPT-2 Small to a checkpoint at step
+# TRAIN_GPT2_STEPS[0], then resumed on the same directory to
+# TRAIN_GPT2_STEPS[1] (AdamW's 100 warmup steps keep the learning rate
+# small: the loss needs tens of steps to fall), then a few steps with
+# remat off; TinyLlama-1.1B a few steps with remat on and off, no
+# checkpoint.  The smoke config's train step on the card is held against
+# the CPU's within tests/test_torch_train_step.py's tolerances
+# (TRAIN_TWIN_*).
+TRAIN_CFG = dict(batch=8, seq=128, microbatches=2, compress_grads=True,
+                 log_every=10)
+TRAIN_GPT2_STEPS = (20, 40)
+TRAIN_REMAT_OFF_STEPS = 4
+TRAIN_LLAMA_STEPS = 4
+TRAIN_TWIN_ARCH = "gpt2_small"
+TRAIN_TWIN_RUNS = ((False, 3), (True, 1))      # (compression, steps)
+TRAIN_TWIN_LR = 1e-3
+TRAIN_TWIN_RTOL = 1e-4
+TRAIN_TWIN_CHANGED_SHARE = 0.005
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA's data sheet)
 
 
 def emit(obj) -> None:
@@ -2019,6 +2065,228 @@ def serve_cli_phase(dev):
     return out
 
 
+def train_step_twin(device, compress: bool, steps: int):
+    """``make_train_step`` on TRAIN_TWIN_ARCH's smoke config at float32
+    compute, weights drawn on the CPU from seed 0: ``steps`` steps at lr
+    TRAIN_TWIN_LR, 2 microbatches, int8 compression on or off.  The
+    losses, grad norms and final weights (float32 host arrays)."""
+    import dataclasses
+    import torch
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, compression
+    cfg = dataclasses.replace(get_arch(TRAIN_TWIN_ARCH).smoke,
+                              dtype=torch.float32)
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    params = tree_map(lambda p: p.to(device), M.init(
+        cfg, sh, torch.Generator().manual_seed(SEED), torch.device("cpu")))
+    opt = adamw.AdamWCfg(lr=TRAIN_TWIN_LR, warmup_steps=1, total_steps=steps)
+    step = T.make_train_step(cfg, sh, opt, T.TrainCfg(
+        microbatches=2, compress_grads=compress, remat=True))
+    st, ef = adamw.init(params), compression.init_ef(params)
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab, SEED), 4, 16)
+    metrics = []
+    for _ in range(steps):
+        toks, labels = (torch.from_numpy(a).to(device, torch.int64)
+                        for a in pipe.next_batch())
+        params, st, ef, m = step(params, st, ef, toks, labels)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, [p.float().cpu().numpy() for p in leaves(params)]
+
+
+def check_train_twin(dev, compress: bool, steps: int):
+    """The card's smoke-config steps against the CPU's: losses and grad
+    norms within TRAIN_TWIN_RTOL; every weight within 2 lr k + 2^-7 |p|
+    (a near-zero gradient or an int8 code that rounds the other way moves
+    a weight 2 lr a step, a last-bit difference one bf16 ulp), at most
+    TRAIN_TWIN_CHANGED_SHARE of them different at all.  With compression
+    one step: a flipped code moves its weight by 2 lr, which changes the
+    next step's gradients well past float32 rounding."""
+    import numpy as np
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train", "TF32 matmuls are on: the twin must compare float32")
+    card, card_w = train_step_twin(dev, compress, steps)
+    cpu, cpu_w = train_step_twin(torch.device("cpu"), compress, steps)
+    rel = max(abs(a - c) / abs(c) for x, y in zip(card, cpu)
+              for a, c in zip(x, y))
+    if rel > TRAIN_TWIN_RTOL:
+        fail("train", f"compress={compress}: card loss/grad norm {card} != "
+             f"CPU {cpu}")
+    bound = 2 * TRAIN_TWIN_LR * steps
+    changed = total = 0
+    worst = 0.0
+    for a, b in zip(card_w, cpu_w):
+        d = np.abs(a - b)
+        if not np.all(d <= bound + 2.0 ** -7 * np.abs(b)):
+            fail("train", f"compress={compress}: a weight differs by "
+                 f"{float(d.max())} between the card's step and the CPU's")
+        changed += int(np.count_nonzero(d))
+        total += b.size
+        worst = max(worst, float(d.max()))
+    if changed > TRAIN_TWIN_CHANGED_SHARE * total:
+        fail("train", f"compress={compress}: {changed} of {total} weights "
+             "differ between the card's step and the CPU's")
+    return dict(arch=TRAIN_TWIN_ARCH, compress=compress, steps=steps,
+                card=card, cpu=cpu, max_rel=rel, weights_changed=changed,
+                weights=total, max_weight_diff=worst)
+
+
+class _Timed:
+    """Wraps a module function for the phase, recording each call's
+    seconds (the device synchronised at the end)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def train_run(dev, arch, rec_key, rec, resume=False, **tc_kw):
+    """One ``launch.train.train`` at full width (its stdout to stderr):
+    its record (steps, losses, step ms as the median after the first,
+    tokens/s, the 6 N tokens FLOP share of BF16_PEAK_FLOPS, the pipeline's
+    host ms per batch, peak allocated bytes) under ``rec[rec_key]``, and
+    the run's output."""
+    import contextlib
+    import io
+    import statistics
+    import torch
+    from repro_torch.launch import train as T
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = T.train(arch, T.TrainCfg(**TRAIN_CFG, **tc_kw), smoke=False,
+                      resume=resume, device=dev)
+    sys.stderr.write(buf.getvalue())
+    losses = out["losses"]
+    if not losses or not all(map(math.isfinite, losses)):
+        fail("train", f"{arch} {rec_key}: losses {losses}")
+    step_s = statistics.median(out["step_seconds"][1:])
+    tokens = TRAIN_CFG["batch"] * TRAIN_CFG["seq"]
+    n_params = sum(p.numel() for p in _leaves(out["params"]))
+    rec[rec_key] = dict(
+        steps=len(losses), first_loss=losses[0], last_loss=losses[-1],
+        first_step_ms=out["step_seconds"][0] * 1e3, step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s,
+        flops_6nt=6 * n_params * tokens,
+        bf16_peak_share=6 * n_params * tokens / step_s / BF16_PEAK_FLOPS,
+        pipeline_ms=statistics.median(out["data_seconds"]) * 1e3,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    rec["params"] = n_params
+    return out, buf.getvalue()
+
+
+def profile_train_step(dev, arch: str):
+    """One ``make_train_step`` call at full width (TRAIN_CFG, remat on,
+    fresh weights and state, the pipeline's first batch) under
+    torch.profiler, after two warm steps: the device's busy share of the
+    step's wall time, its kernel launches and the top kernels."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, compression
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(arch).cfg
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    tc = T.TrainCfg(**TRAIN_CFG)
+    params = M.init(cfg, sh, torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = [params, adamw.init(params), compression.init_ef(params)]
+    step = T.make_train_step(cfg, sh, adamw.AdamWCfg(), tc)
+    toks, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in
+                    DataPipeline(SyntheticCorpus(cfg.vocab, SEED), tc.batch,
+                                 tc.seq).next_batch())
+
+    def one():
+        p, o, e, metrics = step(*state, toks, labels)
+        state[:] = [p, o, e]
+        return float(metrics["loss"])
+    one()
+    one()
+    _, prof = profiled_call(one)
+    del state
+    return prof
+
+
+def train_phase(dev, smi_line: str):
+    """Training at full width: GPT-2 Small to a checkpoint and resumed
+    from it, TinyLlama-1.1B with remat on and off (one JSON line for each
+    model), after the smoke config's step on the card against the CPU's
+    (see TRAIN_*), which the phase returns."""
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    out = {"twin": [check_train_twin(dev, compress, steps)
+                    for compress, steps in TRAIN_TWIN_RUNS]}
+    k, total = TRAIN_GPT2_STEPS
+    gpt2 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "ck")
+        with _Timed(ckpt, "save_async") as save, \
+                _Timed(ckpt, "wait_pending") as wait:
+            first, _ = train_run(dev, "gpt2_small", "remat_to_checkpoint",
+                                 gpt2, steps=k, ckpt_dir=d, ckpt_every=k)
+        if ckpt.latest_step(d) != k:
+            fail("train", f"gpt2_small: no checkpoint at step {k}")
+        files = os.listdir(os.path.join(d, f"step_{k}"))
+        gpt2["checkpoint"] = dict(
+            step=k, files=len(files),
+            bytes=sum(os.path.getsize(os.path.join(d, f"step_{k}", f))
+                      for f in files),
+            save_async_seconds=save.seconds, wait_pending_seconds=wait.seconds)
+        with _Timed(ckpt, "restore") as restore:
+            second, log = train_run(dev, "gpt2_small", "remat_resumed", gpt2,
+                                    resume=True, steps=total, ckpt_dir=d,
+                                    ckpt_every=total)
+        gpt2["checkpoint"]["restore_seconds"] = restore.seconds
+        if f"[train] elastic resume from step {k}" not in log or \
+                len(second["losses"]) != total - k:
+            fail("train", f"gpt2_small did not resume at step {k}: ran "
+                 f"{len(second['losses'])} steps")
+        if not second["losses"][-1] < first["losses"][0]:
+            fail("train", f"gpt2_small: the last loss {second['losses'][-1]} "
+                 f"is not below the first {first['losses'][0]}")
+        del first, second
+        train_run(dev, "gpt2_small", "no_remat", gpt2, remat=False,
+                  steps=TRAIN_REMAT_OFF_STEPS, ckpt_dir=os.path.join(tmp, "x"),
+                  ckpt_every=TRAIN_REMAT_OFF_STEPS + 1)
+        gpt2["profiled_step"] = profile_train_step(dev, "gpt2_small")
+        emit({"phase": "train", "model": "gpt2_small", "ok": True,
+              "nvidia_smi": smi_line, **gpt2})
+        llama = {}
+        for remat in (True, False):
+            train_run(dev, "tinyllama_1_1b", "remat" if remat else "no_remat",
+                      llama, remat=remat, steps=TRAIN_LLAMA_STEPS,
+                      ckpt_dir=os.path.join(tmp, "y"),
+                      ckpt_every=TRAIN_LLAMA_STEPS + 1)
+        llama["profiled_step"] = profile_train_step(dev, "tinyllama_1_1b")
+        emit({"phase": "train", "model": "tinyllama_1_1b", "ok": True,
+              "nvidia_smi": smi_line, **llama})
+    return out
+
+
 def profiled_call(fn, *args, match=()):
     """Run fn under torch.profiler, tracing device activity only; report
     the device's busy time (the sum of kernel times) against the wall
@@ -2044,7 +2312,8 @@ def profiled_call(fn, *args, match=()):
                    device_busy_ms=busy if rows else None,
                    busy_share=busy / (wall * 1e3) if rows else None,
                    top=[dict(name=k[:80], ms=ms, count=c)
-                        for k, ms, c in rows[:12]])
+                        for k, ms, c in rows[:12]],
+                   launches=sum(r[2] for r in rows))
     if match:
         summary["match"] = {
             m: [sum(r[1] for r in rows if m in r[0]),
@@ -2247,6 +2516,11 @@ def main() -> int:
     cli = serve_cli_phase(dev)
     emit({"phase": "serve_cli", "ok": True, "seconds": time.monotonic() - t0,
           **cli})
+
+    t0 = time.monotonic()
+    twin = train_phase(dev, smi_line)
+    emit({"phase": "train", "ok": True, "seconds": time.monotonic() - t0,
+          **twin})
 
     kernels = []
     for name, _, src, replaces in kernel_modules():

@@ -15,11 +15,13 @@ cross-attention) are not ported yet: a config that needs one raises
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -184,8 +186,12 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
             remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
     """tokens: (B, S) int -> logits (B, S, vocab_padded).  Returns (logits,
-    new_caches, aux_loss).  ``remat`` (JAX rematerialisation under
-    autodiff) changes no number and is accepted for the signature."""
+    new_caches, aux_loss).  With ``remat`` and grad enabled, each layer
+    body runs under ``torch.utils.checkpoint`` (non-reentrant), the
+    counterpart of the JAX package's ``jax.checkpoint(...,
+    nothing_saveable)``: backward recomputes the layer instead of keeping
+    its activations, and no number changes.  A cached call (decode, which
+    updates its caches in place) never rematerialises."""
     check_supported(cfg)
     if enc_input is not None:
         raise L.not_ported("the encoder and its cross-attention")
@@ -200,8 +206,8 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches: Optional[List] = [] if caches is not None else None
-    for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
-        cache = caches[i] if caches is not None else None
+
+    def layer_body(h, lp, spec, cache):
         hn = L.apply_norm(cfg.norm, lp["n1"], h, use_lut)
         out, new_cache = L.attention(cfg.attn_cfg(spec), sh, lp["mix"], hn,
                                      positions, use_lut, cache)
@@ -209,6 +215,15 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
         if "ffn" in lp:
             hf = L.apply_norm(cfg.norm, lp["n2"], h, use_lut)
             h = h + L.mlp(cfg.mlp_cfg(), sh, lp["ffn"], hf, use_lut)
+        return h, new_cache
+
+    body = layer_body
+    if remat and caches is None and torch.is_grad_enabled():
+        body = functools.partial(torch.utils.checkpoint.checkpoint,
+                                 layer_body, use_reentrant=False)
+    for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
+        cache = caches[i] if caches is not None else None
+        h, new_cache = body(h, lp, spec, cache)
         if new_caches is not None:
             new_caches.append(new_cache)
 

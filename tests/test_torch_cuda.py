@@ -449,3 +449,57 @@ def test_process_backend_ipc_without_copy(dev):
     assert len(jobs) == 1 and jobs[0]["allocated_after_payload"] == 0
     assert jobs[0]["launches"]["sumcheck_round"] > 0
     assert jobs[0]["payload_bytes"] < 64 << 10
+
+
+def _train_step_run(arch, device, steps, compress):
+    """``make_train_step`` on a smoke config at float32 compute, weights
+    drawn on the CPU from seed 0 and moved to ``device``; the losses, grad
+    norms and final bf16 weights (as float32 host arrays)."""
+    import dataclasses
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, compression
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    params = tree_map(lambda p: p.to(device),
+                      M.init(cfg, sh, torch.Generator().manual_seed(0), "cpu"))
+    opt = adamw.AdamWCfg(lr=1e-3, warmup_steps=1, total_steps=steps)
+    step = T.make_train_step(cfg, sh, opt, T.TrainCfg(
+        microbatches=2, compress_grads=compress, remat=True))
+    st = adamw.init(params)
+    ef = compression.init_ef(params)
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab, 0), 4, 16)
+    metrics = []
+    for _ in range(steps):
+        toks, labels = (torch.from_numpy(a).to(device, torch.int64)
+                        for a in pipe.next_batch())
+        params, st, ef, m = step(params, st, ef, toks, labels)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, [p.float().cpu().numpy() for p in leaves(params)]
+
+
+@pytest.mark.parametrize("compress,steps", [(False, 3), (True, 1)])
+@pytest.mark.parametrize("arch", ["gpt2_small", "tinyllama_1_1b", "gemma3_1b"])
+def test_train_step_on_card_equals_cpu(dev, arch, compress, steps):
+    """The training step computes the same on the card as on the CPU,
+    within tests/test_torch_train_step.py's tolerances (loss and grad
+    norm rtol 1e-4; every weight within 2 lr k + 2^-7 |p|, at most 0.5%
+    of them different).  With int8 compression one step: a code that
+    rounds the other way moves its weight by 2 lr, which changes the next
+    step's gradients well past float32 rounding.  TF32 stays off: the
+    float32 matmuls are float32."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    card, card_w = _train_step_run(arch, dev, steps, compress)
+    cpu, cpu_w = _train_step_run(arch, torch.device("cpu"), steps, compress)
+    for (a, b), (c, d) in zip(card, cpu):
+        assert a == pytest.approx(c, rel=1e-4) and b == pytest.approx(d, rel=1e-4)
+    changed = total = 0
+    for a, b in zip(card_w, cpu_w):
+        diff = np.abs(a - b)
+        assert np.all(diff <= 2 * 1e-3 * steps + 2.0 ** -7 * np.abs(b))
+        changed += int(np.count_nonzero(diff))
+        total += b.size
+    assert changed <= 0.005 * total

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``;
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
+imports ``jax``, ``ml_dtypes`` or anything of the JAX package ``repro``;
 and asking for the card where there is none raises instead of falling back
 to the CPU."""
 import ast
@@ -15,6 +16,9 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    examples = os.path.join(ROOT, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.endswith("_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -34,11 +38,12 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 20
+    assert sum(f.endswith("_torch.py") for f in files) == 4
     bad = []
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "repro"):
+            if root in ("jax", "jaxlib", "repro", "ml_dtypes"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
 
@@ -111,3 +116,17 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         K3.prove_rounds([torch.zeros((1, 3, 4), dtype=torch.int64)],
                         torch.zeros((1, 16), dtype=torch.int64))
+
+
+def test_train_without_a_card_raises(tmp_path):
+    """``train()`` and the CLI default to the card: without one they raise
+    before they draw a weight or touch the checkpoint directory."""
+    from repro_torch.launch import train as T
+    if torch.cuda.is_available():
+        return
+    tc = T.TrainCfg(steps=1, ckpt_dir=str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.train("gpt2_small", tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.main(["--smoke", "--steps", "1", "--ckpt-dir", tc.ckpt_dir])
+    assert not os.path.exists(tc.ckpt_dir)

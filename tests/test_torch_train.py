@@ -1,0 +1,455 @@
+"""The training substrates of repro_torch against the JAX package: the data
+pipeline, AdamW, int8 gradient compression, checkpoints (crossing between
+the packages both ways), remat, ``train()`` and its CLI, on the CPU.
+
+Inputs come from numpy seeds.  Tolerances:
+  * the data pipeline: byte-equal batches (the port keeps a copy of the
+    JAX package's numpy code);
+  * ``schedule``: rtol 1e-6 (float32; ``cos`` may differ in its last bit);
+  * ``update`` (params, m, v, grad_norm after several steps on the same
+    float32 tree and grads): rtol 1e-6, atol 1e-9.  Both compute in
+    float32 in the same order; XLA may fuse a multiply-add where PyTorch
+    rounds twice, and the packages sum a leaf's squares in different
+    orders;
+  * compression: codes and scales equal (one float32 max, one division,
+    round half to even in both);
+  * checkpoints: bit for bit, file names and manifests equal;
+  * remat on and off: gradients bit for bit.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis_compat import given, settings, st
+
+from repro.checkpoint import checkpoint as jckpt
+from repro.configs import get_arch as jget_arch
+from repro.data import pipeline as jpipe
+from repro.models import model as JM
+from repro.optim import adamw as jadamw
+from repro.optim import compression as jcomp
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import get_arch
+from repro_torch.data import pipeline as pipe
+from repro_torch.launch.train import TrainCfg, train
+from repro_torch.models import model as M
+from repro_torch.optim import adamw, compression
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _np(x):
+    """A host array of a torch tensor or JAX array (bfloat16 as its uint16
+    bit pattern, which numpy can compare)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
+    a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype == jnp.bfloat16 else a
+
+
+# ---------------------------------------------------------------------------
+# Data pipeline.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("vocab,seed,host", [(97, 3, (0, 1)), (512, 0, (1, 2)),
+                                             (50257, 7, (0, 1))])
+def test_pipeline_byte_equal(vocab, seed, host):
+    jc, tc = jpipe.SyntheticCorpus(vocab, seed), pipe.SyntheticCorpus(vocab, seed)
+    assert np.array_equal(jc.next_tok, tc.next_tok)
+    assert jc.unigram.tobytes() == tc.unigram.tobytes()
+    kw = dict(batch=2, seq=16, host_index=host[0], num_hosts=host[1])
+    jp, tp = jpipe.DataPipeline(jc, **kw), pipe.DataPipeline(tc, **kw)
+    for _ in range(3):
+        for a, b in zip(jp.next_batch(), tp.next_batch()):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    st_ = jp.state()
+    assert tp.state() == st_
+    jp2, tp2 = jpipe.DataPipeline(jc, **kw), pipe.DataPipeline(tc, **kw)
+    st_["epoch_seed"] = 5
+    jp2.restore(st_)
+    tp2.restore(st_)
+    for _ in range(2):
+        for a, b in zip(jp2.next_batch(), tp2.next_batch()):
+            assert a.tobytes() == b.tobytes()
+
+
+def test_pipeline_deterministic_and_resumable():
+    """The JAX package's substrate test, on the port."""
+    c = pipe.SyntheticCorpus(vocab=97, seed=3)
+    p1 = pipe.DataPipeline(c, batch=2, seq=16)
+    batches = [p1.next_batch() for _ in range(4)]
+    st_ = p1.state()
+    after = [p1.next_batch() for _ in range(2)]
+    p2 = pipe.DataPipeline(c, batch=2, seq=16)
+    p2.restore(st_)
+    replay = [p2.next_batch() for _ in range(2)]
+    for (a, _), (b, _) in zip(after, replay):
+        assert np.array_equal(a, b)
+    p3 = pipe.DataPipeline(c, batch=2, seq=16, host_index=1, num_hosts=2)
+    assert not np.array_equal(batches[0][0], p3.next_batch()[0])
+
+
+# ---------------------------------------------------------------------------
+# AdamW.
+# ---------------------------------------------------------------------------
+def test_schedule_matches_jax():
+    cfg = jadamw.AdamWCfg(warmup_steps=100, total_steps=1000)
+    tcfg = adamw.AdamWCfg(warmup_steps=100, total_steps=1000)
+    for s in (0, 1, 50, 100, 101, 500, 999, 1000, 1200):
+        j = float(jadamw.schedule(cfg, jnp.asarray(s, jnp.int32)))
+        t = adamw.schedule(tcfg, torch.tensor(s, dtype=torch.int32))
+        assert t.dtype == torch.float32
+        assert float(t) == pytest.approx(j, rel=1e-6, abs=0), s
+
+
+def _float_tree(seed):
+    r = np.random.default_rng(seed)
+    return {"w": r.normal(size=(8, 16)).astype(np.float32),
+            "layers": [{"b": r.normal(size=(16,)).astype(np.float32)},
+                       {"b": r.normal(size=(3,)).astype(np.float32) * 1e-3}],
+            "a": r.normal(size=(5, 2)).astype(np.float32)}
+
+
+def test_adamw_update_matches_jax():
+    cfg = jadamw.AdamWCfg(lr=1e-2, warmup_steps=2, total_steps=6,
+                          grad_clip=0.5)
+    tcfg = adamw.AdamWCfg(lr=1e-2, warmup_steps=2, total_steps=6,
+                          grad_clip=0.5)
+    tree = _float_tree(0)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = jax.tree_util.tree_map(lambda a: torch.from_numpy(a.copy()), tree)
+    js, ts = jadamw.init(jp), adamw.init(tp)
+    assert ts.step.dtype == torch.int32 and ts.step.shape == ()
+    for k in range(5):
+        g = _float_tree(10 + k)
+        jp, js, jm = jadamw.update(cfg, js, jp,
+                                   jax.tree_util.tree_map(jnp.asarray, g))
+        tp2, ts, tm = adamw.update(tcfg, ts, tp,
+                                   jax.tree_util.tree_map(torch.from_numpy, g))
+        assert tp2 is tp                       # updated in place
+        assert int(ts.step) == int(js.step) == k + 1
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                       rel=1e-6)
+        assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
+        for a, b in ((jp, tp), (js.m, ts.m), (js.v, ts.v)):
+            for x, y in zip(jax.tree_util.tree_leaves(a),
+                            jax.tree_util.tree_leaves(b, is_leaf=torch.is_tensor)):
+                np.testing.assert_allclose(y.numpy(), np.asarray(x),
+                                           rtol=1e-6, atol=1e-9)
+
+
+def test_adamw_keeps_bf16_params_and_f32_moments():
+    # 1e-3: a bfloat16 ulp there (2^-17) is far below the step of lr = 3e-4
+    p = {"w": torch.full((4,), 1e-3, dtype=torch.bfloat16)}
+    st_ = adamw.init(p)
+    p2, st2, _ = adamw.update(adamw.AdamWCfg(warmup_steps=1), st_, p,
+                              {"w": torch.ones(4, dtype=torch.bfloat16)})
+    assert p2["w"].dtype == torch.bfloat16 and st2.m["w"].dtype == torch.float32
+    assert float(p2["w"][0]) < 1e-3
+
+
+def test_adamw_reduces_quadratic():
+    """The JAX package's substrate test, on the port."""
+    cfg = adamw.AdamWCfg(lr=0.1, warmup_steps=1, total_steps=100,
+                         weight_decay=0.0)
+    params = {"w": torch.tensor([5.0, -3.0])}
+    state = adamw.init(params)
+    for _ in range(60):
+        grads = {"w": 2 * params["w"]}
+        params, state, _ = adamw.update(cfg, state, params, grads)
+    assert float(params["w"].abs().max()) < 0.5
+
+
+def test_state_specs_mirror_param_specs():
+    from repro_torch.models.layers import P
+    specs = {"embed": P(None, "data"), "layers": [{"w": P("data", None)}]}
+    st_ = adamw.state_specs(specs)
+    assert st_.step == P() and st_.m is specs and st_.v == specs
+    assert st_.v is not specs and st_.v["layers"] is not specs["layers"]
+
+
+# ---------------------------------------------------------------------------
+# Compression.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed", range(4))
+def test_compress_matches_jax(seed):
+    r = np.random.default_rng(seed)
+    g = (r.normal(size=(64, 33)) * 10.0 ** r.integers(-6, 2)).astype(np.float32)
+    res = (r.normal(size=g.shape) * 1e-3).astype(np.float32)
+    g.reshape(-1)[:3] = [0.0, -0.0, g.reshape(-1)[3]]
+    jq, js, jr = jcomp.compress(jnp.asarray(g), jnp.asarray(res))
+    tq, ts, tr = compression.compress(torch.from_numpy(g), torch.from_numpy(res))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert np.array_equal(tq.numpy(), np.asarray(jq))
+    assert float(ts) == float(js)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(compression.decompress(tq, ts).numpy(),
+                                  np.asarray(jcomp.decompress(jq, js)))
+
+
+def test_compress_rounds_half_to_even():
+    g = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    q, scale, _ = compression.compress(g, torch.zeros_like(g))
+    assert float(scale) == 1.0
+    assert q.tolist() == [127, 0, 2, 2, 0, -2]
+
+
+def test_compress_tree_matches_jax():
+    g, r = _float_tree(1), _float_tree(2)
+    jc, js, je = jcomp.compress_tree(
+        jax.tree_util.tree_map(jnp.asarray, g),
+        jcomp.EFState(residual=jax.tree_util.tree_map(jnp.asarray, r)))
+    tc, ts, te = compression.compress_tree(
+        jax.tree_util.tree_map(torch.from_numpy, g),
+        compression.EFState(residual=jax.tree_util.tree_map(torch.from_numpy, r)))
+    for a, b in ((jc, tc), (js, ts), (je.residual, te.residual)):
+        for x, y in zip(jax.tree_util.tree_leaves(a),
+                        jax.tree_util.tree_leaves(b, is_leaf=torch.is_tensor)):
+            np.testing.assert_array_equal(y.numpy(), np.asarray(x))
+    ef = compression.init_ef({"w": torch.zeros(3, dtype=torch.bfloat16)})
+    assert ef.residual["w"].dtype == torch.float32
+
+
+@given(st.lists(st.floats(min_value=-10, max_value=10), min_size=4,
+                max_size=16))
+@settings(max_examples=30, deadline=None)
+def test_compression_error_feedback_bounded(vals):
+    """int8 + error feedback: per-step residual < 1 quant step (the JAX
+    package's property, on the port)."""
+    g = torch.tensor(np.array(vals, np.float32))
+    q, scale, new_res = compression.compress(g, torch.zeros_like(g))
+    assert float(new_res.abs().max()) <= float(scale) + 1e-6
+    recon = compression.decompress(q, scale) + new_res
+    np.testing.assert_allclose(recon.numpy(), g.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints.
+# ---------------------------------------------------------------------------
+def _state_pair():
+    """JAX's and the port's (params, opt_state) of the gpt2 smoke config:
+    the same bf16 weights, moments and step."""
+    jcfg = jget_arch("gpt2_small").smoke
+    cfg = get_arch("gpt2_small").smoke
+    jsh = jcfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    jp = JM.init(jcfg, jsh, jax.random.PRNGKey(0))
+    r = np.random.default_rng(4)
+    js = jadamw.AdamWState(
+        step=jnp.asarray(7, jnp.int32),
+        m=jax.tree_util.tree_map(
+            lambda p: jnp.asarray(r.normal(size=p.shape).astype(np.float32)), jp),
+        v=jax.tree_util.tree_map(
+            lambda p: jnp.asarray(r.random(size=p.shape).astype(np.float32)), jp))
+    tp = M.params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jp),
+                             sh, device="cpu")
+    f32 = lambda tree: jax.tree_util.tree_map(            # noqa: E731
+        lambda a: torch.from_numpy(np.array(a)), tree)
+    ts = adamw.AdamWState(step=torch.tensor(7, dtype=torch.int32),
+                          m=f32(js.m), v=f32(js.v))
+    return (jp, js), (tp, ts)
+
+
+def _same_bits(jtree, ttree):
+    jl = jax.tree_util.tree_leaves(jtree)
+    tl = jax.tree_util.tree_leaves(ttree, is_leaf=torch.is_tensor)
+    assert len(jl) == len(tl)
+    for x, y in zip(jl, tl):
+        a, b = _np(x), _np(y)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def _listing(d):
+    return sorted(os.listdir(d))
+
+
+def test_checkpoint_crosses_both_ways(tmp_path):
+    (jp, js), (tp, ts) = _state_pair()
+    _same_bits((jp, js), (tp, ts))
+    extra = {"pipeline": {"step": 3, "epoch_seed": 0}}
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    jckpt.save((jp, js), jd, step=20, extra=extra)
+    ckpt.save((tp, ts), td, step=20, extra=extra)
+    # same file names and bytes, manifest included
+    files = _listing(os.path.join(jd, "step_20"))
+    assert files == _listing(os.path.join(td, "step_20"))
+    assert "[0]__['layers']__[0]__['mix']__['wq'].npy" in files
+    assert "[1]__.step.npy" in files and "[1]__.m__['embed'].npy" in files
+    for f in files:
+        with open(os.path.join(jd, "step_20", f), "rb") as a, \
+                open(os.path.join(td, "step_20", f), "rb") as b:
+            assert a.read() == b.read(), f
+    with open(os.path.join(td, "step_20", "manifest.json")) as fh:
+        man = json.load(fh)
+    assert man["dtypes"]["[0]__['embed']"] == "bfloat16"
+    assert man["dtypes"]["[1]__.step"] == "int32"
+    # the JAX-written checkpoint restores in the port, and the port's in JAX
+    (rp, rs), m1 = ckpt.restore((tp, ts), jd, device="cpu")
+    assert m1["step"] == 20 and m1["extra"] == extra
+    _same_bits((jp, js), (rp, rs))
+    assert rp["embed"].dtype == torch.bfloat16 and rs.step.dtype == torch.int32
+    (jrp, jrs), m2 = jckpt.restore((jp, js), td)
+    assert m2 == m1
+    _same_bits((jrp, jrs), (tp, ts))
+
+
+def test_checkpoint_atomic_roundtrip(tmp_path):
+    """The JAX package's substrate test, on the port (gc keeps 3)."""
+    tree = {"a": torch.arange(6).reshape(2, 3),
+            "b": {"c": torch.ones(4, dtype=torch.bfloat16)}}
+    d = str(tmp_path / "ck")
+    ckpt.save(tree, d, step=5, extra={"pipeline": {"step": 7,
+                                                   "epoch_seed": 0}})
+    ckpt.save(tree, d, step=10)
+    assert ckpt.latest_step(d) == 10
+    restored, manifest = ckpt.restore(tree, d, step=5, device="cpu")
+    assert manifest["extra"]["pipeline"]["step"] == 7
+    assert torch.equal(restored["a"], tree["a"])
+    assert torch.equal(restored["b"]["c"], tree["b"]["c"])
+    assert restored["b"]["c"].dtype == torch.bfloat16
+    for s in (11, 12, 13):
+        ckpt.save(tree, d, step=s)
+    assert ckpt.latest_step(d) == 13
+    assert _listing(d) == ["step_11", "step_12", "step_13"]
+    # a crashed writer's .tmp is never the latest
+    os.makedirs(os.path.join(d, "step_14.tmp"))
+    assert ckpt.latest_step(d) == 13
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore(tree, str(tmp_path / "none"), device="cpu")
+
+
+def test_checkpoint_async_takes_owning_copies(tmp_path):
+    """save_async copies before it returns: an in-place update right after
+    it (the next train step's) does not reach the checkpoint."""
+    w = torch.zeros((64, 64))
+    d = str(tmp_path / "ck2")
+    th = ckpt.save_async({"w": w}, d, step=1)
+    w.add_(1.0)
+    th.join()
+    ckpt.wait_pending()
+    assert ckpt.latest_step(d) == 1
+    restored, _ = ckpt.restore({"w": w}, d, device="cpu")
+    assert float(restored["w"].abs().max()) == 0.0
+    ckpt.save_async({"w": w}, d, step=2)
+    ckpt.wait_pending()
+    assert ckpt.latest_step(d) == 2
+
+
+# ---------------------------------------------------------------------------
+# Remat.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["gpt2_small", "tinyllama_1_1b", "gemma3_1b"])
+def test_remat_gradients_bit_equal(arch):
+    cfg = get_arch(arch).smoke
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    params = M.init(cfg, sh, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 17)))
+    grads = []
+    for remat in (True, False):
+        live = jax.tree_util.tree_map(lambda p: p.detach().requires_grad_(True),
+                                      params, is_leaf=torch.is_tensor)
+        flat = jax.tree_util.tree_leaves(live, is_leaf=torch.is_tensor)
+        loss = M.loss_fn(cfg, sh, live, toks[:, :-1], toks[:, 1:], remat=remat)
+        grads.append((loss.detach(), torch.autograd.grad(loss, flat)))
+    (l1, g1), (l2, g2) = grads
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    # a no-grad forward never rematerialises, and gives the same logits
+    with torch.no_grad():
+        a = M.forward(cfg, sh, params, toks, remat=True)[0]
+    assert torch.equal(a, M.forward(cfg, sh, params, toks)[0].detach())
+
+
+def test_remat_recomputes_under_backward(monkeypatch):
+    """With remat the layer body runs again during backward (once per
+    layer), without it only in the forward."""
+    from repro_torch.models import layers as L
+    cfg = get_arch("gpt2_small").smoke
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    params = M.init(cfg, sh, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.zeros((1, 5), dtype=torch.int64)
+    calls = []
+    mlp = L.mlp
+
+    def counting_mlp(*a, **k):
+        calls.append(1)
+        return mlp(*a, **k)
+    monkeypatch.setattr(L, "mlp", counting_mlp)
+    for remat, want in ((False, cfg.n_layers), (True, 2 * cfg.n_layers)):
+        calls.clear()
+        live = jax.tree_util.tree_map(lambda p: p.detach().requires_grad_(True),
+                                      params, is_leaf=torch.is_tensor)
+        M.loss_fn(cfg, sh, live, toks, toks, remat=remat).backward()
+        assert len(calls) == want
+
+
+# ---------------------------------------------------------------------------
+# train() and the CLI.
+# ---------------------------------------------------------------------------
+def test_train_reduces_loss_and_resumes(tmp_path, capsys):
+    """tests/test_train_loop.py's run on the port.  Over 30 warmup steps
+    the per-batch loss moves less than it differs between batches (the
+    JAX package's own run of this test: 6.2364 -> 6.2297, with swings of
+    +-0.02 between them), so the fall is checked on one held-out batch of
+    16 sequences, before and after; the resumed run starts at step 20 and
+    runs 15 steps."""
+    tc = TrainCfg(steps=30, batch=4, seq=32, microbatches=2,
+                  compress_grads=True, remat=False,
+                  ckpt_dir=str(tmp_path / "ck"), ckpt_every=20,
+                  log_every=100)
+    out = train("gpt2_small", tc, smoke=True, resume=False, device="cpu")
+    losses = out["losses"]
+    assert len(losses) == 30 and np.all(np.isfinite(losses))
+    cfg, sh = out["cfg"], out["sh"]
+    init = M.init(cfg, sh, torch.Generator().manual_seed(tc.seed), device="cpu")
+    held = pipe.DataPipeline(pipe.SyntheticCorpus(cfg.vocab, 99), 16, 32)
+    toks, labels = (torch.from_numpy(a).long() for a in held.next_batch())
+    with torch.no_grad():
+        before = float(M.loss_fn(cfg, sh, init, toks, labels))
+        after = float(M.loss_fn(cfg, sh, out["params"], toks, labels))
+    assert after < before
+    assert len(out["step_seconds"]) == len(out["data_seconds"]) == 30
+    assert ckpt.latest_step(tc.ckpt_dir) == 20
+    tc2 = TrainCfg(steps=35, batch=4, seq=32, microbatches=2,
+                   compress_grads=True, remat=False,
+                   ckpt_dir=str(tmp_path / "ck"), ckpt_every=100,
+                   log_every=100)
+    capsys.readouterr()
+    out2 = train("gpt2_small", tc2, smoke=True, resume=True, device="cpu")
+    assert "[train] elastic resume from step 20" in capsys.readouterr().out
+    assert len(out2["losses"]) == 15          # resumed at step 20
+
+
+def test_train_kept_differences_raise(tmp_path):
+    tc = TrainCfg(steps=1, ckpt_dir=str(tmp_path / "ck"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train("gpt2_small", TrainCfg(steps=1, scan_layers=True,
+                                     ckpt_dir=str(tmp_path / "ck")),
+              device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train("gpt2_small", tc, mesh=object(), device="cpu")
+    assert not os.path.exists(tc.ckpt_dir)
+
+
+def test_cli_trains_then_resumes(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+           "--smoke", "--seq", "16", "--batch", "4", "--microbatches", "2",
+           "--compress-grads", "--ckpt-dir", str(tmp_path / "ck")]
+    outs = []
+    for steps in ("100", "104"):
+        r = subprocess.run(cli + ["--steps", steps], capture_output=True,
+                           text=True, env=env, cwd=str(tmp_path), timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
+        outs.append(r.stdout)
+    assert "final loss:" in outs[0] and "elastic resume" not in outs[0]
+    assert "[train] elastic resume from step 100" in outs[1]
