@@ -132,7 +132,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              no-cache forward over the same tokens (a bf16 near-tie
              within ARGMAX_TIE accepted and reported); prefill ms, decode
              ms per token, tokens/s, peak allocated bytes.
-13. serve_cli — ``launch.serve.emit_attestation`` of the serving golden's
+13. zoo    — the rest of the float model zoo at full width (bf16, random
+             weights from a torch.Generator, batch 2, a 16-token prompt,
+             8 new tokens, LUT ops on and off): Moonlight-16B-A3B whole
+             (48 layers, ~56 GB), jamba-v0.1-52b's first 8 of 32 layers
+             and qwen2-vl-72b's first 4 of 80 (depth cut for the card's
+             memory), whisper-small whole with its encoder over 1500
+             seeded frames, xlstm-350m whole.  Logits finite, tokens in
+             [0, vocab); qwen2-vl and whisper: the model phase's argmax
+             check (whisper through forward and decode_step with its
+             enc_input); Moonlight, jamba and xlstm, whose reference
+             makes a cached decode differ from a full forward: a cached
+             prefill equal to the no-cache forward, and two generate runs
+             giving equal tokens.  Init s, prefill ms, decode ms per
+             token, tokens/s, peak allocated, one profiled decode step
+             against the weights' read floor.  Then the six new archs'
+             smoke configs at float32 on the card against the CPU, and
+             the serving CLI in process on each.
+14. serve_cli — ``launch.serve.emit_attestation`` of the serving golden's
              tokens on the card, its files equal to
              tests/data/golden_serve_v{1,2}.bin and sidecars
              (tests/data/gen_golden_serve.py; K1-K4 must launch); then
@@ -140,7 +157,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              --with-proof --emit`` and ``--verify-file --stream-verify``
              in two fresh processes, each exiting 0 with verified=True;
              the seconds of each.
-14. train  — ``launch.train.train`` at full width and depth, bf16 weights
+15. train  — ``launch.train.train`` at full width and depth, bf16 weights
              from TrainCfg's seed, batch 8 x seq 128 in 2 microbatches,
              int8 gradient compression on: GPT-2 Small 20 steps to a
              checkpoint at step 20, then a second ``train`` on the same
@@ -274,6 +291,31 @@ MODEL_PROMPT = 16
 MODEL_NEW_TOKENS = 16
 EMBED_SCALE = 50.0
 ARGMAX_TIE = 2.0 ** -6
+# The rest of the float model zoo at full width (src/repro_torch/configs/,
+# bf16, random weights as in the model phase): (arch, layers run or None
+# for all).  Moonlight-16B-A3B whole (its ~56 GB of bf16 weights fit the
+# card); jamba-v0.1-52b cut to its first period of 8 layers (all 32 need
+# ~104 GB) and qwen2-vl-72b to 4 of 80 (all need ~145 GB); whisper-small's
+# 12 + 12 layers, its encoder over ENCODER frames of a seeded enc_input;
+# xlstm-350m whole.
+ZOO_RUNS = (("moonshot_v1_16b_a3b", None), ("jamba_v0_1_52b", 8),
+            ("qwen2_vl_72b", 4), ("whisper_small", None), ("xlstm_350m", None))
+ZOO_NEW_TOKENS = 8
+# Archs whose reference makes a cached decode differ from a full forward
+# (the MoE's capacity grows with the token count; the mLSTM decode step
+# floors its normaliser at 1.0): checked by a cached prefill against a
+# no-cache forward over the same tokens, relative to the largest |logit|
+# (the two run the same operations on the same shapes), and by two
+# generate runs giving equal tokens (the MoE's combine has no atomics).
+ZOO_PREFILL_ARCHS = ("moonshot_v1_16b_a3b", "jamba_v0_1_52b", "xlstm_350m")
+ZOO_PREFILL_RTOL = 1e-3
+# The smoke twin: the six new archs' smoke configs at float32 on the card
+# and on the CPU through the port, tests/test_torch_models.py's exact-path
+# tolerance (rtol 1e-4, atol 1e-4 x the largest |logit|); greedy tokens
+# equal.
+ZOO_SMOKE_ARCHS = ("grok_1_314b", "moonshot_v1_16b_a3b", "jamba_v0_1_52b",
+                   "qwen2_vl_72b", "whisper_small", "xlstm_350m")
+ZOO_TWIN_RTOL = 1e-4
 # The serving CLI's demo attestation (tests/data/gen_golden_serve.py).
 SERVE_CLI_QUERIES = 8
 SERVE_CLI_LAYERS = 2
@@ -1955,14 +1997,8 @@ def model_phase(dev):
             last = logits[:, -1, :cfg.vocab].float()
             if not bool(torch.isfinite(logits).all()):
                 fail("model", f"{arch} use_lut={use_lut}: non-finite logits")
-            top = last.max(dim=-1).values
-            picked = last.gather(1, toks[:, -1:])[:, 0]
-            gap = float((top - picked).max())
-            tie = ARGMAX_TIE * float(last.abs().max())
-            agree = bool(torch.equal(last.argmax(dim=-1), toks[:, -1]))
-            if not agree and gap > tie:
-                fail("model", f"{arch} use_lut={use_lut}: the cached decode's "
-                     f"token trails the no-cache argmax by {gap} (> {tie})")
+            agree, gap = argmax_check("model", f"{arch} use_lut={use_lut}",
+                                      last, toks)
             total = stats["prefill_seconds"] + stats["decode_seconds"]
             rec["runs"]["lut" if use_lut else "exact"] = dict(
                 prefill_ms=stats["prefill_seconds"] * 1e3,
@@ -1975,6 +2011,273 @@ def model_phase(dev):
         out[arch] = rec
         del params, logits
         progress("model", f"{arch} done", t0)
+    return out
+
+
+def zoo_config(arch: str, layers):
+    """The arch's full config, cut to its first ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers,
+                                  layers=cfg.layers[:layers])
+    return cfg
+
+
+def greedy_with_encoder(cfg, sh, params, prompt, enc, new_tokens, use_lut,
+                        stats):
+    """``generate``'s greedy loop, with ``enc_input`` passed to the prefill
+    and to every decode step (each reruns the encoder, as in the JAX
+    package); the prefill's and the decode steps' seconds into stats."""
+    import torch
+    from repro_torch.models import model as M
+    B, S = prompt.shape
+    dev = prompt.device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    caches = M.make_caches(cfg, sh, B, S + new_tokens, dev)
+    logits, caches, _ = M.forward(cfg, sh, params, prompt, caches=caches,
+                                  use_lut=use_lut, enc_input=enc)
+    tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    out = [tok]
+    for i in range(new_tokens - 1):
+        lg, caches = M.decode_step(cfg, sh, params, tok,
+                                   torch.full((B,), S + i, dtype=torch.int64,
+                                              device=dev),
+                                   caches, enc_input=enc, use_lut=use_lut)
+        tok = torch.argmax(lg[:, :cfg.vocab], dim=-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize(dev)
+    stats.update(prefill_seconds=t1 - t0,
+                 decode_seconds=time.perf_counter() - t1,
+                 decode_steps=new_tokens - 1)
+    return torch.cat(out, dim=1)
+
+
+def argmax_check(phase, name, last, toks):
+    """The last cached decode step's token against the argmax of a
+    no-cache forward's last logits (float32): (equal, gap); a gap above
+    ARGMAX_TIE x the largest |logit| fails."""
+    import torch
+    top = last.max(dim=-1).values
+    picked = last.gather(1, toks[:, -1:])[:, 0]
+    gap = float((top - picked).max())
+    tie = ARGMAX_TIE * float(last.abs().max())
+    agree = bool(torch.equal(last.argmax(dim=-1), toks[:, -1]))
+    if not agree and gap > tie:
+        fail(phase, f"{name}: the cached decode's token trails the no-cache "
+             f"argmax by {gap} (> {tie})")
+    return agree, gap
+
+
+def zoo_run(dev, arch: str, layers):
+    """One full-width config of ZOO_RUNS: init, then for the LUT ops on and
+    off a warm ``generate`` and a timed one (whisper: the greedy loop with
+    its enc_input), with the arch's checks (see zoo_phase)."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = zoo_config(arch, layers)
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = dict(layers=cfg.n_layers, layers_of=len(zoo_config(arch, None).layers),
+               d=cfg.d, heads=cfg.heads, kv_heads=cfg.kv_heads, vocab=cfg.vocab,
+               dtype=str(cfg.dtype), allocated_before_init=
+               torch.cuda.memory_allocated(dev), runs={})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.monotonic()
+    params = M.init(cfg, sh, gen, dev)
+    params["embed"] = params["embed"] * EMBED_SCALE
+    prompt = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                           generator=gen, device=dev)
+    enc = None
+    if cfg.encoder is not None:
+        enc = torch.randn((MODEL_BATCH, cfg.encoder.frames, cfg.d),
+                          generator=gen, device=dev, dtype=torch.float32)
+        rec["encoder"] = dict(layers=cfg.encoder.n_layers,
+                              frames=cfg.encoder.frames)
+    torch.cuda.synchronize(dev)
+    rec["init_seconds"] = time.monotonic() - t0
+    rec["params"] = sum(p.numel() for p in _leaves(params))
+    rec["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in _leaves(params))
+    sc = S.ServeCfg(max_new_tokens=ZOO_NEW_TOKENS)
+
+    def run(use_lut, stats):
+        if enc is not None:
+            return greedy_with_encoder(cfg, sh, params, prompt, enc,
+                                       ZOO_NEW_TOKENS, use_lut, stats)
+        return S.generate(cfg, sh, params, prompt, sc, use_lut=use_lut,
+                          stats=stats)
+
+    for use_lut in (True, False):
+        name = f"{arch} use_lut={use_lut}"
+        first = run(use_lut, {})                                  # warm
+        stats = {}
+        toks = run(use_lut, stats)
+        if tuple(toks.shape) != (MODEL_BATCH, ZOO_NEW_TOKENS):
+            fail("zoo", f"{name}: tokens of shape {tuple(toks.shape)}")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+            fail("zoo", f"{name}: a token outside [0, {cfg.vocab})")
+        full = torch.cat([prompt, toks[:, :-1]], dim=1)
+        with torch.no_grad():
+            logits, _, aux = M.forward(cfg, sh, params, full, use_lut=use_lut,
+                                       enc_input=enc)
+        if not bool(torch.isfinite(logits).all()):
+            fail("zoo", f"{name}: non-finite logits")
+        total = stats["prefill_seconds"] + stats["decode_seconds"]
+        r = dict(prefill_ms=stats["prefill_seconds"] * 1e3,
+                 decode_ms_per_token=stats["decode_seconds"] * 1e3
+                 / stats["decode_steps"],
+                 tokens_per_s=MODEL_BATCH * ZOO_NEW_TOKENS / total,
+                 aux=float(aux), distinct_tokens=int(toks.unique().numel()))
+        if arch in ZOO_PREFILL_ARCHS:
+            # a cached prefill over the same tokens (caches of exactly their
+            # length) against the no-cache forward, then determinism
+            with torch.no_grad():
+                caches = M.make_caches(cfg, sh, MODEL_BATCH, full.shape[1], dev)
+                cached, _, _ = M.forward(cfg, sh, params, full, caches=caches,
+                                         use_lut=use_lut)
+            scale = float(logits.float().abs().max())
+            rel = float((cached.float() - logits.float()).abs().max()) / scale
+            if not rel <= ZOO_PREFILL_RTOL:
+                fail("zoo", f"{name}: cached prefill logits differ from the "
+                     f"no-cache forward by {rel} of the largest |logit| "
+                     f"(> {ZOO_PREFILL_RTOL})")
+            same = bool(torch.equal(first, toks))
+            if not same:
+                fail("zoo", f"{name}: two generate runs gave different tokens")
+            r.update(prefill_rel_diff=rel, repeat_tokens_equal=same)
+        else:
+            last = logits[:, -1, :cfg.vocab].float()
+            r["argmax_equal"], r["argmax_gap"] = argmax_check(
+                "zoo", name, last, toks)
+        rec["runs"]["lut" if use_lut else "exact"] = r
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    # one decode step (LUT ops on) under torch.profiler, against the time
+    # the card needs to read every weight but the embedding (its rows are
+    # gathered) once: a decode step at T = 2 reads all of them, every
+    # expert included (the capacity gives each at least 4 slots)
+    with torch.no_grad():
+        caches = M.make_caches(cfg, sh, MODEL_BATCH, MODEL_PROMPT + 1, dev)
+        _, caches, _ = M.forward(cfg, sh, params, prompt, caches=caches,
+                                 use_lut=True, enc_input=enc)
+        pos = torch.full((MODEL_BATCH,), MODEL_PROMPT, dtype=torch.int64,
+                         device=dev)
+        _, rec["decode_profile"] = profiled_call(
+            M.decode_step, cfg, sh, params, prompt[:, -1:], pos, caches,
+            enc, True)
+    embed = params["embed"]
+    rec["weight_read_floor_ms"] = (rec["param_bytes"] - embed.numel()
+                                   * embed.element_size()) / HBM_BYTES_PER_S * 1e3
+    del params, logits, caches
+    return rec
+
+
+def zoo_twin(dev):
+    """The six new archs' smoke configs at float32, the port's weights drawn
+    on the CPU (embedding x EMBED_SCALE) and copied to the card: no-cache
+    forward logits (whisper with a seeded enc_input) within ZOO_TWIN_RTOL
+    of the CPU's, and ``generate``'s greedy tokens (LUT ops off) equal."""
+    import dataclasses
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ZOO_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+        sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+        gen = torch.Generator().manual_seed(SEED)
+        params = M.init(cfg, sh, gen, cpu)
+        params["embed"] = params["embed"] * EMBED_SCALE
+        prompt = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                               generator=gen)
+        enc = None
+        if cfg.encoder is not None:
+            enc = torch.randn((MODEL_BATCH, cfg.encoder.frames, cfg.d),
+                              generator=gen)
+        sc = S.ServeCfg(max_new_tokens=ZOO_NEW_TOKENS)
+        res = []
+        for where in (cpu, dev):
+            p = tree_map(lambda t: t.to(where), params)
+            e = enc.to(where) if enc is not None else None
+            with torch.no_grad():
+                logits, _, _ = M.forward(cfg, sh, p, prompt.to(where),
+                                         enc_input=e)
+            toks = S.generate(cfg, sh, p, prompt.to(where), sc, use_lut=False)
+            res.append((logits.cpu(), toks.cpu()))
+        (lc, tc), (lg, tg) = res
+        scale = float(lc.abs().max())
+        err = float((lg - lc).abs().max())
+        close = bool(torch.allclose(lg, lc, rtol=ZOO_TWIN_RTOL,
+                                    atol=ZOO_TWIN_RTOL * scale))
+        if not close:
+            fail("zoo", f"smoke twin {arch}: card logits differ from the CPU's "
+                 f"(max abs {err}, scale {scale})")
+        if not torch.equal(tg, tc):
+            fail("zoo", f"smoke twin {arch}: greedy tokens differ from the CPU's")
+        out[arch] = dict(max_abs_err=err, scale=scale, tokens_equal=True)
+    return out
+
+
+def zoo_cli(dev):
+    """``launch.serve.main`` in process for each of the six new archs at its
+    smoke config on the card, 4 new tokens: the seconds and the token
+    line of each."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as S
+    out = {}
+    for arch in ZOO_SMOKE_ARCHS:
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            S.main(["--arch", arch, "--device", str(dev), "--max-new-tokens",
+                    "4"])
+        text = buf.getvalue()
+        if not text.startswith("generated:"):
+            fail("zoo", f"serve CLI --arch {arch}: {text!r}")
+        out[arch] = dict(seconds=time.monotonic() - t0,
+                         output=" ".join(text.split()))
+    return out
+
+
+def zoo_phase(dev, smi_line: str):
+    """The rest of the float model zoo on the card: each config of ZOO_RUNS
+    at full width (the depth cuts listed there; bf16, weights from a
+    torch.Generator seeded with SEED, embedding x EMBED_SCALE; batch 2, a
+    16-token prompt, 8 new tokens, LUT ops on and off).  Logits finite,
+    tokens in [0, vocab); init seconds, prefill ms, decode ms per token,
+    tokens/s, peak allocated bytes.  qwen2-vl and whisper: the last cached
+    decode token is the argmax of a no-cache forward (within ARGMAX_TIE),
+    whisper with its enc_input through forward and decode_step.  moonshot,
+    jamba and xlstm (ZOO_PREFILL_ARCHS): a cached prefill equals the
+    no-cache forward within ZOO_PREFILL_RTOL, and two generate runs give
+    equal tokens.  Then the smoke twin (zoo_twin) and the serving CLI on
+    each new arch (zoo_cli)."""
+    out = {"nvidia_smi": smi_line, "models": {}}
+    for arch, layers in ZOO_RUNS:
+        t0 = time.monotonic()
+        out["models"][arch] = zoo_run(dev, arch, layers)
+        out["models"][arch]["seconds"] = time.monotonic() - t0
+        progress("zoo", f"{arch} done", t0)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out["smoke_twin"] = zoo_twin(dev)
+    out["smoke_twin_seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["cli"] = zoo_cli(dev)
+    out["cli_seconds"] = time.monotonic() - t0
     return out
 
 
@@ -2511,6 +2814,13 @@ def main() -> int:
     model = model_phase(dev)
     emit({"phase": "model", "ok": True, "seconds": time.monotonic() - t0,
           "nvidia_smi": smi_line, "models": model})
+
+    # the rest of the zoo: the model phase's weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    zoo = zoo_phase(dev, smi_line)
+    emit({"phase": "zoo", "ok": True, "seconds": time.monotonic() - t0, **zoo})
 
     t0 = time.monotonic()
     cli = serve_cli_phase(dev)

@@ -9,8 +9,8 @@ Shapes follow the brief:
   decode_32k   one token, KV len 32768, batch 128 (serve_step)
   long_500k    one token, KV len 524288, batch 1  (sub-quadratic only)
 
-The dry run's ``input_specs`` is not ported yet; it comes with the
-training stack (ROADMAP Queue 1 item 8).
+The dry run's ``input_specs`` is not ported yet: it comes with the dry
+run and the mesh (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -73,7 +73,10 @@ def make_train_step(cfg, sh, opt_cfg: adamw.AdamWCfg, train_cfg: TrainCfg):
                 loss = MDL.loss_fn(cfg, sh, live, tokens[i * mb:(i + 1) * mb],
                                    labels[i * mb:(i + 1) * mb],
                                    remat=train_cfg.remat)
-                g = torch.autograd.grad(loss, leaves(live))
+                # a parameter the loss does not reach (whisper's encoder
+                # without enc_input) gets a zero gradient, as under jax.grad
+                g = torch.autograd.grad(loss, leaves(live),
+                                        materialize_grads=True)
             for a, b in zip(leaves(gsum), g):
                 a.add_(b.to(torch.float32))
             lsum = lsum + loss.detach()

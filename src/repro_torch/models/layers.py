@@ -1,5 +1,4 @@
-"""Layer library of the float serving path (mirrors ``repro.models.layers``,
-the dense part).
+"""Layer library of the float serving path (mirrors ``repro.models.layers``).
 
 Every layer takes an explicit parameter dict of tensors.  The JAX package
 describes how each tensor maps onto a TPU mesh (``ShardCfg``, partition
@@ -12,10 +11,13 @@ The LUT-approximated deployed model (paper §4) is reached with
 einsum/softmax form (no fused attention kernel: the LUT softmax is not
 SDPA's, and the plain and LUT paths share one formulation).
 
-Not ported yet (ROADMAP Queue 1 item 7), each raising
-``NotImplementedError`` where a config asks for it: the MoE
-(``layers.moe``), M-RoPE (``apply_mrope``), cross-attention (``x_kv``) and
-the sequence-sharded decode cache (``ShardCfg.cache_seq``).
+The MoE keeps the JAX package's capacity rule and both dispatches; its
+sort dispatch sorts with ``argsort(stable=True)`` and combines each
+token's K expert outputs without atomics (``_combine``), so that a run on
+the card gives the same bits every time.
+
+Not ported: the sequence-sharded decode cache (``ShardCfg.cache_seq``),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ MASKED_BELOW = -1e29    # the LUT softmax's test for a masked key
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item 7)")
+        f"{what} is not ported to repro_torch: it needs a device mesh "
+        f"(ROADMAP Queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +157,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., seq, heads, dh); positions: (..., seq) int."""
     dh = x.shape[-1]
     inv = rope_freqs(dh, base, x.device)
-    ang = positions[..., None].float() * inv            # (..., seq, dh/2)
+    return _rotate(x, positions[..., None].float() * inv)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate x's two halves by the angles ang (..., seq, dh/2), in
+    float32, broadcast over the heads."""
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -162,8 +170,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Optional[Tuple[int, int, int]] = None,
+                base: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the dh/2 frequencies split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (..., seq, heads, dh); positions3: (3, ..., seq).  The default
+    sections are qwen2-vl's 2:3:3 split (16, 24, 24 at dh=128) scaled to
+    dh: dh//8, then two equal halves of the rest."""
+    dh = x.shape[-1]
+    if sections is None:
+        t = dh // 8
+        hw = (dh // 2 - t) // 2
+        sections = (dh // 2 - 2 * hw, hw, hw)
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} must cover dh/2 = "
+                         f"{dh // 2}")
+    inv = rope_freqs(dh, base, x.device)                     # (dh/2,)
+    edges = [0, sections[0], sections[0] + sections[1], dh // 2]
+    ang = torch.cat([positions3[i][..., None].float() *
+                     inv[edges[i]:edges[i + 1]] for i in range(3)], dim=-1)
+    return _rotate(x, ang)
+
+
 # ---------------------------------------------------------------------------
-# Attention (GQA, optional local window, optional logit softcap).
+# Attention (GQA, optional local window, logit softcap, cross-attention).
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class AttnCfg:
@@ -255,29 +287,34 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (batch, seq, d).  kv_cache: {'k', 'v', 'len'} for decode, 'len' a
     Python int (a decode step never waits on a device read); the cache's
-    k/v tensors are updated in place and returned in the new cache."""
-    if x_kv is not None:
-        raise not_ported("cross-attention (attention's x_kv)")
-    if cfg.rope == "mrope":
-        raise not_ported("M-RoPE (layers.apply_mrope)")
+    k/v tensors are updated in place and returned in the new cache.
+    x_kv: the encoder's states for cross-attention (whisper's decoder):
+    keys and values come from them, every key is visible, and there is no
+    cache."""
     B, S, D = x.shape
     H, KV, dh = cfg.heads, cfg.kv_heads, cfg.dh
     dev = x.device
 
+    src = x if x_kv is None else x_kv
     q = torch.matmul(x, p["wq"].to(x.dtype))
-    k = torch.matmul(x, p["wk"].to(x.dtype))
-    v = torch.matmul(x, p["wv"].to(x.dtype))
+    k = torch.matmul(src, p["wk"].to(x.dtype))
+    v = torch.matmul(src, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, KV, dh)
-    v = v.reshape(B, S, KV, dh)
+    k = k.reshape(B, src.shape[1], KV, dh)
+    v = v.reshape(B, src.shape[1], KV, dh)
 
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
+    elif cfg.rope == "mrope":
+        # text-only positions: the three streams are equal
+        pos3 = positions[None].expand((3,) + tuple(positions.shape))
+        q = apply_mrope(q, pos3, base=cfg.rope_base)
+        k = apply_mrope(k, pos3, base=cfg.rope_base)
 
     new_cache = None
     cache_is_ring = False
@@ -302,7 +339,7 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
     kq = k.repeat_interleave(group, dim=2)
     vq = v.repeat_interleave(group, dim=2)
 
-    if (cfg.window > 0 and kv_cache is None and cfg.causal
+    if (cfg.window > 0 and kv_cache is None and x_kv is None and cfg.causal
             and S > 2 * cfg.window and S % cfg.window == 0
             and positions.ndim == 1):
         out = _banded_attention(cfg, sh, q, kq, vq, positions, use_lut)
@@ -320,7 +357,9 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
         k_pos = ar[None, :].expand(B, Sk)[:, None, :]
     if positions.ndim == 1:
         q_pos = positions[None, :, None]
-    if cache_is_ring:
+    if x_kv is not None:
+        mask = torch.ones((B, S, Sk), dtype=torch.bool, device=dev)
+    elif cache_is_ring:
         # the ring holds only the window; every filled slot is valid
         valid = k_pos < min(new_cache["len"], Sk)
         mask = valid.expand(B, S, Sk) if valid.shape[0] == 1 else valid
@@ -387,3 +426,136 @@ def mlp(cfg: MlpCfg, sh: ShardCfg, p, x: torch.Tensor,
     if cfg.gated:
         h = h * torch.matmul(x, p["w3"].to(x.dtype))
     return torch.matmul(h, p["w2"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based, sort or einsum dispatch).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MoeCfg:
+    d: int
+    d_ff: int                  # per-expert hidden
+    n_experts: int
+    top_k: int
+    act: str = "silu"
+    gated: bool = True
+    capacity_factor: float = 1.25
+
+
+def moe_defs(cfg: MoeCfg, sh: ShardCfg) -> Dict[str, ParamDef]:
+    ep = sh.tp if (cfg.n_experts % sh.tp_size == 0 and sh.moe_ep) else None
+    # if experts don't divide tp, TP-shard each expert's d_ff instead
+    ff_tp = None if ep else (sh.tp if cfg.d_ff % sh.tp_size == 0 else None)
+    s_in = 1.0 / math.sqrt(cfg.d)
+    s_out = 1.0 / math.sqrt(cfg.d_ff)
+    defs = {
+        "router": ParamDef((cfg.d, cfg.n_experts), P(None, None), s_in),
+        "w1": ParamDef((cfg.n_experts, cfg.d, cfg.d_ff),
+                       P(ep, None, ff_tp), s_in),
+        "w2": ParamDef((cfg.n_experts, cfg.d_ff, cfg.d),
+                       P(ep, ff_tp, None), s_out),
+    }
+    if cfg.gated:
+        defs["w3"] = ParamDef((cfg.n_experts, cfg.d, cfg.d_ff),
+                              P(ep, None, ff_tp), s_in)
+    return defs
+
+
+def moe_capacity(cfg: MoeCfg, T: int) -> int:
+    """Slots per expert for T tokens: it grows with T, so a prefill can drop
+    assignments that a decode step of the same tokens keeps (ROADMAP
+    Queue 3, reference faults)."""
+    cap = max(int(math.ceil(cfg.capacity_factor * cfg.top_k * T
+                            / cfg.n_experts)), 4)
+    return min(cap, T * cfg.top_k)
+
+
+def moe(cfg: MoeCfg, sh: ShardCfg, p, x: torch.Tensor,
+        use_lut: bool = False, dispatch: str = "sort"
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based MoE; returns (out, aux_loss).  The router runs in
+    float32 and keeps the top K experts with renormalised gates; the aux
+    loss is Switch's E * sum_e f_e p_e.
+
+    dispatch='sort' (the default): the (token, k) assignments are sorted
+    by expert (stably), ranked within their expert against the capacity
+    and copied into (E, C, d) slots; each token's K outputs are then
+    summed in the reference's order (``_combine``).  dispatch='einsum':
+    GShard's one-hot (T, E, C) dispatch and combine tensors."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    dev = x.device
+    xt = x.reshape(T, D)
+    logits = torch.matmul(xt.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.topk(probs, K, dim=-1)            # (T, K)
+    gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
+    cap = moe_capacity(cfg, T)
+    onehot_f = torch.nn.functional.one_hot(idx, E).float()   # (T, K, E)
+    aux = E * torch.sum(torch.mean(onehot_f.sum(1), 0) * torch.mean(probs, 0))
+
+    if dispatch == "einsum":
+        pos = torch.cumsum(onehot_f.reshape(T * K, E), dim=0).reshape(T, K, E)
+        pos = (pos - 1.0) * onehot_f
+        keep = (pos < cap) & (onehot_f > 0)
+        slot = torch.where(keep, pos, 0.0).long()
+        slot_oh = torch.nn.functional.one_hot(slot, cap).to(x.dtype) * \
+            keep.to(x.dtype)[..., None]                      # (T, K, E, C)
+        disp = slot_oh.sum(1)
+        comb = torch.einsum("tkec,tk->tec", slot_oh, gate_vals.to(x.dtype))
+        xe = torch.einsum("td,tec->ecd", xt, disp)
+        ye = _expert_ffn(cfg, p, xe, use_lut)
+        out = torch.einsum("ecd,tec->td", ye, comb)
+        return out.reshape(B, S, D), aux
+
+    flat_e = idx.reshape(-1)                                 # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    tok_of = order // K
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    rank = torch.arange(T * K, device=dev) - starts[sorted_e]
+    keep = rank < cap
+    slot = torch.where(keep, rank, 0)
+    dest = sorted_e * cap + slot                             # unique where keep
+    # dispatch: an index copy into unique slots; a dropped assignment goes
+    # to a spare row past the E * cap slots
+    xe = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=dev)
+    xe[torch.where(keep, dest, E * cap)] = xt[tok_of]
+    ye = _expert_ffn(cfg, p, xe[:E * cap].reshape(E, cap, D), use_lut)
+    contrib = ye.reshape(E * cap, D)[dest] * \
+        (gate_vals.reshape(-1)[order] * keep).to(x.dtype)[:, None]
+    out = _combine(contrib, idx, order, tok_of)
+    return out.reshape(B, S, D), aux
+
+
+def _combine(contrib: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
+             tok_of: torch.Tensor) -> torch.Tensor:
+    """out[t] = the sum of token t's K contributions (``contrib`` in the
+    sorted order), without atomics.  The JAX package scatter-adds
+    (``.at[tok_of].add``) over the sorted assignments, which reach each
+    token in ascending expert order; here the sort is inverted onto a
+    (T, K, d) layout in that same order (an index copy into unique slots)
+    and the K terms are added one at a time in the activations' dtype,
+    from the first: the same order and roundings as a sequential
+    scatter-add, and the same bits on every run (``index_add_`` on a CUDA
+    bfloat16 tensor rounds differently from run to run)."""
+    T, K = idx.shape
+    # the place of each (t, k) among token t's experts in ascending order
+    place = torch.argsort(torch.argsort(idx, dim=1, stable=True), dim=1,
+                          stable=True).reshape(-1)
+    laid = torch.empty_like(contrib)
+    laid[tok_of * K + place[order]] = contrib
+    laid = laid.reshape(T, K, -1)
+    out = laid[:, 0]
+    for k in range(1, K):
+        out = out + laid[:, k]
+    return out
+
+
+def _expert_ffn(cfg: MoeCfg, p, xe: torch.Tensor, use_lut: bool
+                ) -> torch.Tensor:
+    h = _act(cfg.act, torch.bmm(xe, p["w1"].to(xe.dtype)), use_lut)
+    if cfg.gated:
+        h = h * torch.bmm(xe, p["w3"].to(xe.dtype))
+    return torch.bmm(h, p["w2"].to(xe.dtype))

@@ -1,16 +1,14 @@
 """Model assembly for the float serving path (mirrors ``repro.models.model``).
 
-A ModelCfg is a per-layer program; the port runs its attention decoders
-(dense MLP, GQA, sliding windows, tied or untied heads, learned or rotary
-positions).  One ``forward`` covers prefill and decode; caches are a list
-with one dict per layer.  ``forward`` runs the plain layer loop: the JAX
-package's scan-over-layers (``scan_layers``, ``scan_split``,
-``_stack_defs``) is a compile-time device with the same numbers and is not
-ported.
-
-Mamba, mLSTM/sLSTM, the MoE, M-RoPE and the encoder (with its
-cross-attention) are not ported yet: a config that needs one raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7) and never falls back.
+A ModelCfg is a per-layer program: attention, Mamba, mLSTM or sLSTM
+mixers, dense-MLP or MoE FFNs, and an optional encoder stack whose output
+the decoder layers cross-attend (whisper).  One ``forward`` covers
+training, prefill and decode; caches are a list with one dict per layer.
+``forward`` runs the plain layer loop: the JAX package's
+scan-over-layers (``scan_layers``, ``scan_split``, ``_stack_defs``) is a
+compile-time device with the same numbers and is not ported, and neither
+is the sequence-sharded decode cache (``ShardCfg.cache_seq``), which
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +24,8 @@ import torch.utils.checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import mamba as MB
+from . import xlstm as X
 from .layers import P
 
 
@@ -86,6 +86,17 @@ class ModelCfg:
         return L.MlpCfg(d=self.d, d_ff=self.d_ff, act=self.act,
                         gated=self.gated_mlp)
 
+    def moe_cfg(self) -> L.MoeCfg:
+        return L.MoeCfg(d=self.d, d_ff=self.moe_ff or self.d_ff,
+                        n_experts=self.n_experts, top_k=self.top_k,
+                        act=self.act, gated=self.gated_mlp)
+
+    def mamba_cfg(self) -> MB.MambaCfg:
+        return MB.MambaCfg(d=self.d, d_inner=2 * self.d)
+
+    def xlstm_cfg(self, kind: str) -> X.XlstmCfg:
+        return X.XlstmCfg(d=self.d, heads=self.heads, kind=kind)
+
     def shard_cfg(self, dp: Tuple[str, ...] = ("data",), tp_size: int = 16,
                   dp_size: int = 16, cache_seq: Tuple[str, ...] = (),
                   cache_seq_size: int = 1, batch_dp: bool = True
@@ -97,43 +108,62 @@ class ModelCfg:
                           (self.heads % tp_size == 0))
 
 
+LAYER_KINDS = ("attn", "mamba", "mlstm", "slstm")
+
+
 def check_supported(cfg: ModelCfg) -> None:
-    """Raise NotImplementedError for a config that needs a part of the
-    model zoo that is not ported yet."""
-    if cfg.encoder is not None:
-        raise L.not_ported("the encoder and its cross-attention")
-    if cfg.rope == "mrope":
-        raise L.not_ported("M-RoPE (layers.apply_mrope)")
+    """Raise ValueError for a layer kind the model does not know."""
     for spec in cfg.layers:
-        if spec.moe:
-            raise L.not_ported("the MoE (layers.moe)")
-        if spec.kind == "mamba":
-            raise L.not_ported("Mamba (models.mamba)")
-        if spec.kind in ("mlstm", "slstm"):
-            raise L.not_ported("xLSTM (models.xlstm)")
-        if spec.kind != "attn":
+        if spec.kind not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {spec.kind!r}")
 
 
 # ---------------------------------------------------------------------------
 # Parameter definitions.
 # ---------------------------------------------------------------------------
-def _layer_defs(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg) -> Dict:
-    d = {"n1": L.norm_defs(cfg.norm, cfg.d),
-         "mix": L.attn_defs(cfg.attn_cfg(spec), sh)}
-    if cfg.d_ff > 0:
+def _layer_defs(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg,
+                cross: bool = False, causal: bool = True) -> Dict:
+    d = {"n1": L.norm_defs(cfg.norm, cfg.d)}
+    if spec.kind == "attn":
+        d["mix"] = L.attn_defs(cfg.attn_cfg(spec, causal), sh)
+    elif spec.kind == "mamba":
+        d["mix"] = MB.mamba_defs(cfg.mamba_cfg(), sh)
+    else:
+        d["mix"] = X.xlstm_defs(cfg.xlstm_cfg(spec.kind), sh)
+    if cross:
+        d["nc"] = L.norm_defs(cfg.norm, cfg.d)
+        ccfg = dataclasses.replace(cfg.attn_cfg(spec, causal=False),
+                                   rope="none")
+        d["cross"] = L.attn_defs(ccfg, sh)
+    if cfg.d_ff > 0 or spec.moe:
         d["n2"] = L.norm_defs(cfg.norm, cfg.d)
-        d["ffn"] = L.mlp_defs(cfg.mlp_cfg(), sh)
+        if spec.moe:
+            d["ffn"] = L.moe_defs(cfg.moe_cfg(), sh)
+        else:
+            d["ffn"] = L.mlp_defs(cfg.mlp_cfg(), sh)
     return d
 
 
+def _encoder_cfg(cfg: ModelCfg) -> ModelCfg:
+    """The encoder's layers: no rotary positions, biased projections."""
+    return dataclasses.replace(cfg, rope="none", qkv_bias=True)
+
+
 def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
+    """The parameter tree, as the JAX package's ``_fix_defs`` gives it
+    without ``scan_layers``: with an encoder, the decoder layers carry a
+    cross-attention block."""
     check_supported(cfg)
     V = cfg.vocab_padded
     tp = sh.tp if V % sh.tp_size == 0 else None
+    if cfg.encoder is None:
+        layers = [_layer_defs(cfg, spec, sh) for spec in cfg.layers]
+    else:
+        layers = [_layer_defs(dataclasses.replace(cfg, rope="none"), spec,
+                              sh, cross=True) for spec in cfg.layers]
     defs: Dict[str, Any] = {
         "embed": L.ParamDef((V, cfg.d), P(tp, sh.fs(cfg.d)), 0.02),
-        "layers": [_layer_defs(cfg, spec, sh) for spec in cfg.layers],
+        "layers": layers,
         "final_norm": L.norm_defs(cfg.norm, cfg.d),
     }
     if not cfg.tie_embeddings:
@@ -141,6 +171,14 @@ def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
                                      1.0 / math.sqrt(cfg.d))
     if cfg.pos_embed:
         defs["pos"] = L.ParamDef((cfg.pos_embed, cfg.d), P(None, None), 0.01)
+    if cfg.encoder is not None:
+        enc_spec = LayerSpec(kind="attn", rope_base=0.0)
+        defs["enc_layers"] = [
+            _layer_defs(_encoder_cfg(cfg), enc_spec, sh, causal=False)
+            for _ in range(cfg.encoder.n_layers)]
+        defs["enc_norm"] = L.norm_defs(cfg.norm, cfg.d)
+        defs["enc_pos"] = L.ParamDef((cfg.encoder.frames, cfg.d),
+                                     P(None, None), 0.01)
     return defs
 
 
@@ -179,6 +217,36 @@ def params_from_numpy(cfg: ModelCfg, tree, sh: Optional[L.ShardCfg] = None,
 # ---------------------------------------------------------------------------
 # Forward.
 # ---------------------------------------------------------------------------
+def _mixer(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg, lp, h,
+           positions, use_lut, cache):
+    if spec.kind == "attn":
+        return L.attention(cfg.attn_cfg(spec), sh, lp["mix"], h, positions,
+                           use_lut, cache)
+    if spec.kind == "mamba":
+        return MB.mamba(cfg.mamba_cfg(), sh, lp["mix"], h, cache)
+    if spec.kind == "mlstm":
+        return X.mlstm(cfg.xlstm_cfg("mlstm"), sh, lp["mix"], h, cache)
+    return X.slstm(cfg.xlstm_cfg("slstm"), sh, lp["mix"], h, cache)
+
+
+def _encode(cfg: ModelCfg, sh: L.ShardCfg, params, enc_input: torch.Tensor,
+            use_lut: bool) -> torch.Tensor:
+    """The encoder stack over enc_input (B, frames, d), the precomputed
+    frame embeddings of whisper's stubbed frontend: bidirectional
+    attention, learned positions, no cache."""
+    e = enc_input.to(cfg.dtype) + params["enc_pos"].to(cfg.dtype)
+    enc_positions = torch.arange(e.shape[1], device=e.device)
+    acfg = _encoder_cfg(cfg).attn_cfg(LayerSpec(kind="attn"), causal=False)
+    for lp in params["enc_layers"]:
+        a, _ = L.attention(acfg, sh, lp["mix"],
+                           L.apply_norm(cfg.norm, lp["n1"], e, use_lut),
+                           enc_positions, use_lut)
+        e = e + a
+        e = e + L.mlp(cfg.mlp_cfg(), sh, lp["ffn"],
+                      L.apply_norm(cfg.norm, lp["n2"], e, use_lut), use_lut)
+    return L.apply_norm(cfg.norm, params["enc_norm"], e, use_lut)
+
+
 def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List] = None, use_lut: bool = False,
@@ -193,8 +261,6 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
     its activations, and no number changes.  A cached call (decode, which
     updates its caches in place) never rematerialises."""
     check_supported(cfg)
-    if enc_input is not None:
-        raise L.not_ported("the encoder and its cross-attention")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -204,18 +270,35 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
         pos_table = params["pos"].to(cfg.dtype)
         h = h + pos_table[torch.clamp(positions, 0, cfg.pos_embed - 1)]
 
+    enc_out = None
+    if cfg.encoder is not None and enc_input is not None:
+        enc_out = _encode(cfg, sh, params, enc_input, use_lut)
+
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches: Optional[List] = [] if caches is not None else None
 
     def layer_body(h, lp, spec, cache):
+        aux = None
         hn = L.apply_norm(cfg.norm, lp["n1"], h, use_lut)
-        out, new_cache = L.attention(cfg.attn_cfg(spec), sh, lp["mix"], hn,
-                                     positions, use_lut, cache)
+        out, new_cache = _mixer(cfg, spec, sh, lp, hn, positions, use_lut,
+                                cache)
         h = h + out
+        if "cross" in lp and enc_out is not None:
+            hc = L.apply_norm(cfg.norm, lp["nc"], h, use_lut)
+            c_cfg = dataclasses.replace(cfg.attn_cfg(spec, causal=False),
+                                        rope="none")
+            ca, _ = L.attention(c_cfg, sh, lp["cross"], hc, positions,
+                                use_lut, None, x_kv=enc_out)
+            h = h + ca
         if "ffn" in lp:
             hf = L.apply_norm(cfg.norm, lp["n2"], h, use_lut)
-            h = h + L.mlp(cfg.mlp_cfg(), sh, lp["ffn"], hf, use_lut)
-        return h, new_cache
+            if spec.moe:
+                f, aux = L.moe(cfg.moe_cfg(), sh, lp["ffn"], hf, use_lut,
+                               dispatch=cfg.moe_dispatch)
+            else:
+                f = L.mlp(cfg.mlp_cfg(), sh, lp["ffn"], hf, use_lut)
+            h = h + f
+        return h, new_cache, aux
 
     body = layer_body
     if remat and caches is None and torch.is_grad_enabled():
@@ -223,7 +306,9 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
                                  layer_body, use_reentrant=False)
     for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
         cache = caches[i] if caches is not None else None
-        h, new_cache = body(h, lp, spec, cache)
+        h, new_cache, aux = body(h, lp, spec, cache)
+        if aux is not None:
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(new_cache)
 
@@ -253,8 +338,12 @@ def loss_fn(cfg: ModelCfg, sh: L.ShardCfg, params, tokens, labels,
 
 def _one_cache(cfg: ModelCfg, spec: LayerSpec, batch: int, max_len: int,
                device):
-    return L.make_kv_cache(cfg.attn_cfg(spec), batch, max_len, cfg.dtype,
-                           device)
+    if spec.kind == "attn":
+        return L.make_kv_cache(cfg.attn_cfg(spec), batch, max_len, cfg.dtype,
+                               device)
+    if spec.kind == "mamba":
+        return MB.make_mamba_cache(cfg.mamba_cfg(), batch, cfg.dtype, device)
+    return X.make_xlstm_cache(cfg.xlstm_cfg(spec.kind), batch, device)
 
 
 def make_caches(cfg: ModelCfg, sh: L.ShardCfg, batch: int, max_len: int,
@@ -266,7 +355,8 @@ def make_caches(cfg: ModelCfg, sh: L.ShardCfg, batch: int, max_len: int,
 
 def decode_step(cfg: ModelCfg, sh: L.ShardCfg, params, token, pos, caches,
                 enc_input=None, use_lut: bool = False):
-    """token: (B, 1); pos: (B,) current positions.  One serve step."""
+    """token: (B, 1); pos: (B,) current positions.  One serve step; with
+    ``enc_input`` the encoder runs again, as in the JAX package."""
     logits, new_caches, _ = forward(cfg, sh, params, token,
                                     positions=pos[:, None], caches=caches,
                                     enc_input=enc_input, use_lut=use_lut)

@@ -503,3 +503,47 @@ def test_train_step_on_card_equals_cpu(dev, arch, compress, steps):
         changed += int(np.count_nonzero(diff))
         total += b.size
     assert changed <= 0.005 * total
+
+
+def _zoo_smoke_run(arch, device):
+    """A zoo smoke config at float32, weights drawn on the CPU from seed 0
+    (embedding x 50, as tests/test_torch_models.py scales it) and moved to
+    ``device``: no-cache logits (whisper with a seeded enc_input) and 6
+    greedy tokens of ``generate`` with the LUT ops off, on the host."""
+    import dataclasses
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    gen = torch.Generator().manual_seed(0)
+    params = M.init(cfg, sh, gen, "cpu")
+    params["embed"] = params["embed"] * 50.0
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    enc = None
+    if cfg.encoder is not None:
+        enc = torch.randn((2, cfg.encoder.frames, cfg.d), generator=gen)
+        enc = enc.to(device)
+    params = tree_map(lambda p: p.to(device), params)
+    with torch.no_grad():
+        logits, _, _ = M.forward(cfg, sh, params, prompt.to(device),
+                                 enc_input=enc)
+    toks = S.generate(cfg, sh, params, prompt.to(device),
+                      S.ServeCfg(max_new_tokens=6), use_lut=False)
+    return logits.cpu(), toks.cpu()
+
+
+@pytest.mark.parametrize("arch", ["grok_1_314b", "moonshot_v1_16b_a3b",
+                                  "jamba_v0_1_52b", "qwen2_vl_72b",
+                                  "whisper_small", "xlstm_350m"])
+def test_zoo_smoke_twin_on_card_equals_cpu(dev, arch):
+    """The MoE (both dispatches), M-RoPE, the encoder with cross-attention,
+    Mamba and xLSTM compute the same on the card as on the CPU: logits
+    within tests/test_torch_models.py's exact-path tolerance (rtol 1e-4,
+    atol 1e-4 x the largest |logit|), greedy tokens equal."""
+    card, card_toks = _zoo_smoke_run(arch, dev)
+    cpu, cpu_toks = _zoo_smoke_run(arch, torch.device("cpu"))
+    scale = float(cpu.abs().max())
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(card_toks, cpu_toks)

@@ -2,7 +2,8 @@
 package's: 3 steps on the gpt2, tinyllama and gemma3 smoke configs at
 float32 compute (GELU and learned positions; RMSNorm, RoPE, GQA and the
 SiLU gate; sliding windows and the logit softcap), 2 microbatches,
-int8 compression on and off, the JAX weights crossed by
+int8 compression on and off, and 1 step without compression on the
+moonshot and jamba smoke configs (the MoE's two dispatches, Mamba), the JAX weights crossed by
 ``params_from_numpy``, the same batches from the data pipeline.
 
 The optimizer runs at lr 1e-3 from its first step (warmup 1), so that the
@@ -64,6 +65,18 @@ def _leaves_f32(tree):
 @pytest.mark.parametrize("compress", [False, True])
 @pytest.mark.parametrize("arch", ["gpt2_small", "tinyllama_1_1b", "gemma3_1b"])
 def test_train_step_matches_jax(arch, compress):
+    _steps_match_jax(arch, compress, STEPS)
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "jamba_v0_1_52b"])
+def test_moe_train_step_matches_jax(arch):
+    """One step of the MoE configs (moonshot's sort dispatch; jamba's
+    einsum dispatch beside Mamba layers), compression off: the loss
+    carries 0.01 x the aux loss, and its gradient reaches the router."""
+    _steps_match_jax(arch, False, 1)
+
+
+def _steps_match_jax(arch, compress, steps):
     jcfg = dataclasses.replace(jget_arch(arch).smoke, dtype=jnp.float32)
     cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
     jsh = jcfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
@@ -79,7 +92,7 @@ def test_train_step_matches_jax(arch, compress):
     je = jcomp.init_ef(jp) if compress else jcomp.EFState(residual=0)
     te = compression.init_ef(tp) if compress else compression.EFState(residual=0)
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab, 0), BATCH, SEQ)
-    for k in range(1, STEPS + 1):
+    for k in range(1, steps + 1):
         toks, labels = pipe.next_batch()
         with jax.disable_jit():
             jp, js, je, jm = jstep(jp, js, je, jnp.asarray(toks),
