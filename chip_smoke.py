@@ -178,6 +178,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              tests/test_torch_train_step.py's bound.  No kernel of the
              port runs here: the training step is PyTorch's matmuls and
              autograd, as the JAX package's is plain ``jnp``.
+16. dryrun — ``launch.dryrun`` (no kernel of the port runs here): the
+             records of two production cells traced on meta
+             (DRYRUN_PRODUCTION); then three one-device cells
+             (DRYRUN_CARD_CELLS, batch cuts printed as ``reduced``) whose
+             estimate is held against the same step run for real on the
+             card from ``model.init`` weights (``dryrun.check_on_card``):
+             the bytes ``memory_allocated`` gains for the arguments
+             within the caching allocator's rule applied to each tensor
+             (512 B rounding, an unsplit tail of up to 1 MiB a block over
+             1 MiB: ``argument_alloc_{min,max}_per_dev``), the bytes
+             requested equal to ``argument_bytes_per_dev``, the step's
+             peak allocated within 10% of arguments plus
+             ``temp_bytes_per_dev``, FlopCounterMode's count on the card
+             equal to the meta trace's; the step's wall ms (median of 3
+             after the counted step) beside the roofline's, reported
+             only.  Last, the sequence-sharded decode cache: a cached
+             prefill and 4 greedy decode steps of the tinyllama smoke
+             config with and without ``ShardCfg.cache_seq``, logits and
+             tokens equal bit for bit.
 
 Then one ``{"kernels": [...]}`` line (K3's multi-claim calls as a row of
 their own), the nvidia-smi line, and the final ``{"ok": true, "device":
@@ -342,6 +361,15 @@ TRAIN_TWIN_LR = 1e-3
 TRAIN_TWIN_RTOL = 1e-4
 TRAIN_TWIN_CHANGED_SHARE = 0.005
 BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA's data sheet)
+
+# the dry run: production cells traced on meta, and one-device cells whose
+# estimates are held against the card, (arch, shape, batch cut or None)
+DRYRUN_PRODUCTION = (("qwen1_5_0_5b", "decode_32k"),
+                     ("xlstm_350m", "long_500k"))
+DRYRUN_CARD_CELLS = (("qwen1_5_0_5b", "decode_32k", 4),
+                     ("qwen1_5_0_5b", "train_4k", 1),
+                     ("xlstm_350m", "long_500k", None))
+DRYRUN_CACHE_SEQ_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -2590,6 +2618,91 @@ def train_phase(dev, smi_line: str):
     return out
 
 
+def dryrun_cache_seq(dev):
+    """A cached prefill and DRYRUN_CACHE_SEQ_STEPS greedy decode steps of
+    the tinyllama smoke config (bf16, init weights) with and without
+    ``ShardCfg.cache_seq``: the logits and tokens of every step must be
+    equal bit for bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch("tinyllama_1_1b").smoke
+    params = M.init(cfg, cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1),
+                    torch.Generator(device=dev).manual_seed(SEED), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                           generator=gen, device=dev)
+    runs = []
+    for cache_seq in ((), ("model",)):
+        sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1,
+                           cache_seq=cache_seq, cache_seq_size=1)
+        caches = M.make_caches(cfg, sh, MODEL_BATCH,
+                               MODEL_PROMPT + DRYRUN_CACHE_SEQ_STEPS, dev)
+        with torch.no_grad():
+            logits, caches, _ = M.forward(cfg, sh, params, prompt,
+                                          caches=caches)
+            out, tok = [logits], logits[:, -1].argmax(-1)
+            for i in range(DRYRUN_CACHE_SEQ_STEPS):
+                lg, caches = M.decode_step(
+                    cfg, sh, params, tok[:, None],
+                    torch.full((MODEL_BATCH,), MODEL_PROMPT + i, device=dev),
+                    caches)
+                tok = lg.argmax(-1)
+                out += [lg, tok]
+        runs.append(out)
+    torch.cuda.synchronize(dev)
+    equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not equal:
+        fail("dryrun", "cache_seq decode differs from the unsharded decode")
+    return {"steps": DRYRUN_CACHE_SEQ_STEPS, "bit_equal": equal,
+            "tokens": runs[0][-1].tolist()}
+
+
+def dryrun_phase(dev, smi_line: str):
+    """The dry run's estimates: production cells on meta, one-device
+    cells against the card, the sequence-sharded cache (see the module's
+    docstring, phase 16)."""
+    import contextlib
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    out = {"nvidia_smi": smi_line, "production": [], "cells": []}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):
+        for arch, shape in DRYRUN_PRODUCTION:
+            rec = D.run_cell(arch, shape, False, tmp)
+            if rec["status"] != "ok":
+                fail("dryrun", f"{rec['cell']}: {rec.get('error')}")
+            out["production"].append(rec)
+    mesh = make_debug_mesh(1, 1)
+    for arch, shape, batch in DRYRUN_CARD_CELLS:
+        t0 = time.monotonic()
+        cell, _ = D.build_cell(arch, shape, mesh=mesh, batch=batch)
+        full = get_arch(arch).shape_params(shape)["batch"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = D.check_on_card(cell, dev, torch.Generator(
+            device=dev).manual_seed(SEED))
+        est = got.pop("estimate")
+        rec = {"cell": f"{arch}.{shape}.{D.mesh_name(mesh)}",
+               "reduced": {"batch": [full, cell.batch]} if batch else {},
+               "nvidia_smi": smi_line, "seconds": time.monotonic() - t0,
+               "estimate": {k: est[k] for k in (
+                   "flops_traced", "bytes_unfused", "memory", "compute_s",
+                   "memory_s", "bottleneck", "fits", "trace_s")}, **got}
+        out["cells"].append(rec)
+        progress("dryrun", f"{rec['cell']} done", t0)
+        if got["misses"]:
+            emit({"phase": "dryrun", "cell": rec})
+            fail("dryrun", f"{rec['cell']}: {'; '.join(got['misses'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cache_seq"] = dryrun_cache_seq(dev)
+    return out
+
+
 def profiled_call(fn, *args, match=()):
     """Run fn under torch.profiler, tracing device activity only; report
     the device's busy time (the sum of kernel times) against the wall
@@ -2831,6 +2944,13 @@ def main() -> int:
     twin = train_phase(dev, smi_line)
     emit({"phase": "train", "ok": True, "seconds": time.monotonic() - t0,
           **twin})
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dry = dryrun_phase(dev, smi_line)
+    emit({"phase": "dryrun", "ok": True, "seconds": time.monotonic() - t0,
+          **dry})
 
     kernels = []
     for name, _, src, replaces in kernel_modules():

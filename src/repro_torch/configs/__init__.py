@@ -1,2 +1,2 @@
 """Architecture configs of the port (mirrors ``repro.configs``)."""
-from .base import ARCHS, SHAPES, ArchBundle, get_arch  # noqa: F401
+from .base import ARCHS, SHAPES, ArchBundle, get_arch, input_specs  # noqa: F401

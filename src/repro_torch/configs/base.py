@@ -8,9 +8,6 @@ Shapes follow the brief:
   prefill_32k  seq 32768 x global_batch 32    (prefill forward)
   decode_32k   one token, KV len 32768, batch 128 (serve_step)
   long_500k    one token, KV len 524288, batch 1  (sub-quadratic only)
-
-The dry run's ``input_specs`` is not ported yet: it comes with the dry
-run and the mesh (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -18,6 +15,9 @@ import dataclasses
 import importlib
 from typing import Dict, Optional
 
+import torch
+
+from repro_torch.models.layers import P
 from repro_torch.models.model import ModelCfg
 
 SHAPES = {
@@ -55,3 +55,24 @@ def get_arch(name: str) -> ArchBundle:
     name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.BUNDLE
+
+
+def input_specs(cfg: ModelCfg, shape_params: Dict, dp_axes=("data",),
+                multi_pod: bool = False) -> Dict:
+    """The inputs of one dry-run cell as ``meta`` tensors (int32, as the
+    JAX package's), with their partition specs under ``"specs"``: the
+    batch is sharded over ``dp_axes`` when it divides by 16."""
+    seq, batch, mode = (shape_params["seq"], shape_params["batch"],
+                        shape_params["mode"])
+    dp = dp_axes if batch % 16 == 0 else None
+
+    def ints(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    if mode == "train":
+        return {"tokens": ints(batch, seq), "labels": ints(batch, seq),
+                "specs": {"tokens": P(dp, None), "labels": P(dp, None)}}
+    if mode == "prefill":
+        return {"tokens": ints(batch, seq), "specs": {"tokens": P(dp, None)}}
+    # decode: one new token against a cache of length `seq`
+    return {"token": ints(batch, 1), "pos": ints(batch), "cache_len": seq,
+            "specs": {"token": P(dp, None), "pos": P(dp)}}

@@ -10,12 +10,14 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``.  Asking for ``cuda`` without a card raises:
-    the port never carries on silently on the CPU."""
+    the port never carries on silently on the CPU.  ``meta`` (tensors with
+    shapes and dtypes and no data, which the dry run traces) is returned
+    only when the caller names it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False;"
             " pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

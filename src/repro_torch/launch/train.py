@@ -12,8 +12,9 @@ latest checkpoint, the pipeline's state from its manifest).
 
 Everything runs on ``cuda`` unless ``--device`` (or ``device=``) names
 another device; without a card it raises.  Differences from the JAX
-package (ROADMAP "Kept differences"): one device only (``mesh`` and
-``multi_pod`` accept only the one-device case), ``scan_layers=True``
+package (ROADMAP "Kept differences"): one device only (``mesh`` takes
+a one-device ``launch.mesh.Mesh`` or None, ``multi_pod`` must be False),
+``scan_layers=True``
 raises (the stacked ``"blocks"`` layout is not ported), the returned dict
 has no ``mesh`` but the seconds of each step and of each batch's host
 work, and the weights are the port's draws from a ``torch.Generator``
@@ -100,14 +101,15 @@ def train(arch: str, train_cfg: TrainCfg, smoke: bool = True,
           mesh=None, multi_pod: bool = False, resume: bool = True,
           device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
-    if mesh is not None or multi_pod:
+    if multi_pod or (mesh is not None and mesh.size != 1):
         raise NotImplementedError(
-            "repro_torch trains on one device: mesh and multi_pod are not "
-            "ported (ROADMAP Queue 1 item 8)")
+            "repro_torch trains on one card: mesh takes only a one-device "
+            "mesh (launch.mesh.make_debug_mesh(1, 1)), and multi_pod is "
+            "not supported")
     if train_cfg.scan_layers:
         raise NotImplementedError(
             "scan_layers (the stacked 'blocks' parameter layout) is not "
-            "ported to repro_torch (ROADMAP Queue 1 item 8)")
+            "part of repro_torch: forward runs the plain layer loop")
     bundle = get_arch(arch)
     cfg = bundle.smoke if smoke else bundle.cfg
     sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)

@@ -2,8 +2,11 @@
 
 Every layer takes an explicit parameter dict of tensors.  The JAX package
 describes how each tensor maps onto a TPU mesh (``ShardCfg``, partition
-specs, ``cstr``); the port runs on one card, so ``cstr`` is the identity
-and the specs are kept only so that signatures and parameter trees match.
+specs, ``cstr``); the port runs on one card, so ``cstr`` is the identity.
+The specs (``param_specs``) are what the dry run divides each tensor's
+dimensions by to get its bytes on one device of a mesh
+(``launch/dryrun.py``); ``param_shapes`` gives the same tree as ``meta``
+tensors.
 
 The LUT-approximated deployed model (paper §4) is reached with
 ``use_lut=True``: softmax-exp, GELU/SiLU and rsqrt go through
@@ -16,8 +19,9 @@ sort dispatch sorts with ``argsort(stable=True)`` and combines each
 token's K expert outputs without atomics (``_combine``), so that a run on
 the card gives the same bits every time.
 
-Not ported: the sequence-sharded decode cache (``ShardCfg.cache_seq``),
-which raises ``NotImplementedError``.
+The sequence-sharded decode cache (``ShardCfg.cache_seq``) changes only
+which op writes a decode step's key and value, as in the JAX package: see
+``attention``.
 """
 from __future__ import annotations
 
@@ -35,14 +39,8 @@ MASKED = -1e30          # score of a masked key (float32), as in the JAX package
 MASKED_BELOW = -1e29    # the LUT softmax's test for a masked key
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch: it needs a device mesh "
-        f"(ROADMAP Queue 1 item 8)")
-
-
 # ---------------------------------------------------------------------------
-# Sharding configuration (one device: kept for signatures).
+# Sharding configuration: the specs the dry run divides by.
 # ---------------------------------------------------------------------------
 def P(*axes) -> Tuple:
     """A partition spec, as a tuple of mesh-axis names (or None) per dim."""
@@ -69,6 +67,11 @@ class ShardCfg:
             return None
         return self.dp if dim % self.dp_size == 0 else None
 
+    @property
+    def bdp(self):
+        """The batch dimension's axes (None where the batch is replicated)."""
+        return self.dp if self.batch_dp else None
+
 
 def cstr(x: torch.Tensor, spec) -> torch.Tensor:
     """The JAX package's sharding constraint: the identity on one device."""
@@ -93,6 +96,19 @@ def tree_map_defs(fn, defs):
     if isinstance(defs, (list, tuple)):
         return type(defs)(tree_map_defs(fn, v) for v in defs)
     return defs
+
+
+def param_specs(defs):
+    """The tree of partition specs, one tuple per parameter."""
+    return tree_map_defs(lambda d: d.spec, defs)
+
+
+def param_shapes(defs):
+    """The tree of parameters as ``meta`` tensors (shape and dtype, no
+    data): the counterpart of the JAX package's ``jax.ShapeDtypeStruct``
+    tree."""
+    return tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
 
 
 def init_params(defs, gen: torch.Generator, device=None):
@@ -274,7 +290,7 @@ def _banded_attention(cfg: AttnCfg, sh: ShardCfg, q, kq, vq, positions,
             (k_pos[:, None, :] <= q_pos[:, :, None]) & \
             (k_pos[:, None, :] > q_pos[:, :, None] - W)
     scores = torch.where(valid[None, :, None, :, :], scores.float(),
-                         torch.tensor(MASKED, dtype=torch.float32, device=dev))
+                         MASKED)
     probs = _softmax(scores, use_lut).to(q.dtype)
     out = torch.einsum("bchqk,bckhd->bcqhd", probs, vc)
     return out.reshape(B, S, H, dh)
@@ -288,6 +304,12 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
     """x: (batch, seq, d).  kv_cache: {'k', 'v', 'len'} for decode, 'len' a
     Python int (a decode step never waits on a device read); the cache's
     k/v tensors are updated in place and returned in the new cache.
+    Writing a step's keys and values follows the JAX package: a
+    ``lax.dynamic_update_slice`` at the slot, its start clamped to
+    cap - S, except for one token into a sequence-sharded cache
+    (``sh.cache_seq``, cap divisible by ``sh.cache_seq_size``), which the
+    JAX package inserts by a masked ``where`` that matches no slot once a
+    plain cache is full (len >= cap): then nothing is written.
     x_kv: the encoder's states for cross-attention (whisper's decoder):
     keys and values come from them, every key is visible, and there is no
     cache."""
@@ -319,9 +341,6 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
     new_cache = None
     cache_is_ring = False
     if kv_cache is not None:
-        if sh.cache_seq:
-            raise not_ported("the sequence-sharded decode cache "
-                             "(ShardCfg.cache_seq)")
         # decode: append this step's k/v (a ring buffer if windowed)
         ck, cv, clen = kv_cache["k"], kv_cache["v"], int(kv_cache["len"])
         cap = ck.shape[1]
@@ -329,9 +348,15 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
         cache_is_ring = cfg.window > 0
         if S > cap:
             raise ValueError(f"{S} new keys do not fit a cache of {cap}")
-        start = min(slot, cap - S)       # lax.dynamic_update_slice's clamp
-        ck[:, start:start + S] = k
-        cv[:, start:start + S] = v
+        seq_sharded = bool(sh.cache_seq) and cap % sh.cache_seq_size == 0
+        if S == 1 and seq_sharded:
+            if slot < cap:               # the masked insert's one hit
+                ck[:, slot:slot + 1] = k
+                cv[:, slot:slot + 1] = v
+        else:
+            start = min(slot, cap - S)   # lax.dynamic_update_slice's clamp
+            ck[:, start:start + S] = k
+            cv[:, start:start + S] = v
         new_cache = {"k": ck, "v": cv, "len": clen + S}
         k, v = ck, cv
 
@@ -371,7 +396,7 @@ def attention(cfg: AttnCfg, sh: ShardCfg, p, x: torch.Tensor,
         if kv_cache is not None:
             mask = mask & (ar[None, None, :] < new_cache["len"])
     scores = torch.where(mask[:, None, :, :], scores.float(),
-                         torch.tensor(MASKED, dtype=torch.float32, device=dev))
+                         MASKED)
     probs = _softmax(scores, use_lut).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vq)
     out = out.reshape(B, S, H * dh)
@@ -470,6 +495,14 @@ def moe_capacity(cfg: MoeCfg, T: int) -> int:
     return min(cap, T * cfg.top_k)
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``one_hot(idx, n)`` in ``dtype`` as a scatter into zeros: the same
+    ops on every device (``F.one_hot`` reads its input's range back on the
+    CPU and takes another path on ``meta``, which the dry run traces)."""
+    out = torch.zeros(tuple(idx.shape) + (n,), dtype=dtype, device=idx.device)
+    return out.scatter_(-1, idx[..., None], 1)
+
+
 def moe(cfg: MoeCfg, sh: ShardCfg, p, x: torch.Tensor,
         use_lut: bool = False, dispatch: str = "sort"
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -492,7 +525,7 @@ def moe(cfg: MoeCfg, sh: ShardCfg, p, x: torch.Tensor,
     gate_vals, idx = torch.topk(probs, K, dim=-1)            # (T, K)
     gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
     cap = moe_capacity(cfg, T)
-    onehot_f = torch.nn.functional.one_hot(idx, E).float()   # (T, K, E)
+    onehot_f = _one_hot(idx, E, torch.float32)               # (T, K, E)
     aux = E * torch.sum(torch.mean(onehot_f.sum(1), 0) * torch.mean(probs, 0))
 
     if dispatch == "einsum":
@@ -500,7 +533,7 @@ def moe(cfg: MoeCfg, sh: ShardCfg, p, x: torch.Tensor,
         pos = (pos - 1.0) * onehot_f
         keep = (pos < cap) & (onehot_f > 0)
         slot = torch.where(keep, pos, 0.0).long()
-        slot_oh = torch.nn.functional.one_hot(slot, cap).to(x.dtype) * \
+        slot_oh = _one_hot(slot, cap, x.dtype) * \
             keep.to(x.dtype)[..., None]                      # (T, K, E, C)
         disp = slot_oh.sum(1)
         comb = torch.einsum("tkec,tk->tec", slot_oh, gate_vals.to(x.dtype))

@@ -6,9 +6,9 @@ the decoder layers cross-attend (whisper).  One ``forward`` covers
 training, prefill and decode; caches are a list with one dict per layer.
 ``forward`` runs the plain layer loop: the JAX package's
 scan-over-layers (``scan_layers``, ``scan_split``, ``_stack_defs``) is a
-compile-time device with the same numbers and is not ported, and neither
-is the sequence-sharded decode cache (``ShardCfg.cache_seq``), which
-raises ``NotImplementedError``.
+compile-time device with the same numbers and is not ported, so
+``specs``, ``shapes``, ``cache_specs`` and ``make_caches`` give the
+per-layer trees the JAX package gives without ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -182,6 +182,16 @@ def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
     return defs
 
 
+def specs(cfg: ModelCfg, sh: L.ShardCfg):
+    """The partition spec of every parameter (tuples of mesh-axis names)."""
+    return L.param_specs(model_defs(cfg, sh))
+
+
+def shapes(cfg: ModelCfg, sh: L.ShardCfg):
+    """Every parameter as a ``meta`` tensor of its shape and dtype."""
+    return L.param_shapes(model_defs(cfg, sh))
+
+
 def init(cfg: ModelCfg, sh: L.ShardCfg, gen: torch.Generator, device=None):
     """Random parameters from ``gen`` on ``device`` (see layers.init_params)."""
     return L.init_params(model_defs(cfg, sh), gen, device)
@@ -351,6 +361,33 @@ def make_caches(cfg: ModelCfg, sh: L.ShardCfg, batch: int, max_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     return [_one_cache(cfg, spec, batch, max_len, dev) for spec in cfg.layers]
+
+
+def _one_cache_spec(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg):
+    tp = sh.tp
+    if spec.kind == "attn":
+        cap_axes = sh.cache_seq if sh.cache_seq else None
+        kv_tp = tp if (cfg.kv_heads % sh.tp_size == 0 and sh.attn_tp and
+                       not cap_axes) else None
+        return {"k": P(sh.bdp, cap_axes, kv_tp, None),
+                "v": P(sh.bdp, cap_axes, kv_tp, None), "len": P()}
+    if spec.kind == "mamba":
+        mc = cfg.mamba_cfg()
+        itp = tp if mc.d_inner % sh.tp_size == 0 else None
+        return {"h": P(sh.bdp, itp, None), "conv": P(sh.bdp, None, itp)}
+    xc = cfg.xlstm_cfg(spec.kind)
+    htp = tp if xc.heads % sh.tp_size == 0 else None
+    if spec.kind == "mlstm":
+        return {"C": P(sh.bdp, htp, None, None), "n": P(sh.bdp, htp, None),
+                "m": P(sh.bdp, htp)}
+    return {"c": P(sh.bdp, htp, None), "n": P(sh.bdp, htp, None),
+            "h": P(sh.bdp, htp, None), "m": P(sh.bdp, htp, None)}
+
+
+def cache_specs(cfg: ModelCfg, sh: L.ShardCfg):
+    """The partition specs of ``make_caches``' tree, one dict per layer (a
+    KV cache's ``len`` is a host int here; its spec is kept)."""
+    return [_one_cache_spec(cfg, spec, sh) for spec in cfg.layers]
 
 
 def decode_step(cfg: ModelCfg, sh: L.ShardCfg, params, token, pos, caches,

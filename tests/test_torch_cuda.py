@@ -547,3 +547,21 @@ def test_zoo_smoke_twin_on_card_equals_cpu(dev, arch):
     scale = float(cpu.abs().max())
     torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4 * scale)
     assert torch.equal(card_toks, cpu_toks)
+
+
+def test_dryrun_estimate_on_card(dev):
+    """The dry run's estimate of a one-device cell held against the same
+    step on the card, as chip_smoke's dryrun phase holds it
+    (``dryrun.check_on_card``): qwen1.5-0.5b decode_32k cut to batch 2 (a
+    cache of 32768 a layer, ~7 GB): the bytes ``memory_allocated`` gains
+    for the arguments within the caching allocator's rule applied to each
+    tensor, the bytes requested equal to the estimate, the peak within
+    10%, FlopCounterMode's count equal to the meta trace's."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    cell, _ = D.build_cell("qwen1_5_0_5b", "decode_32k",
+                           mesh=make_debug_mesh(1, 1), batch=2)
+    got = D.check_on_card(cell, dev,
+                          torch.Generator(device=dev).manual_seed(0))
+    assert not got["misses"], got["misses"]
+    assert got["flops"] == got["estimate"]["flops_traced"] > 0

@@ -38,6 +38,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 20
+    for module in ("dryrun.py", "mesh.py"):
+        assert os.path.join(PORT, "launch", module) in files
     assert sum(f.endswith("_torch.py") for f in files) == 4
     bad = []
     for path in files:
@@ -48,17 +50,17 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
-def _defaults_to_the_cpu(node) -> bool:
-    """A default of "cpu" or torch.device("cpu")."""
+def _defaults_to_the_device(node, device: str) -> bool:
+    """A default of ``device`` or torch.device(``device``)."""
     if isinstance(node, ast.Constant):
-        return node.value == "cpu"
+        return node.value == device
     return (isinstance(node, ast.Call) and len(node.args) == 1
-            and _defaults_to_the_cpu(node.args[0]))
+            and _defaults_to_the_device(node.args[0], device))
 
 
-def test_no_function_defaults_to_the_cpu():
-    """The CPU runs only where a caller names it: no default argument of
-    the port says "cpu"."""
+def _defaults_to(device: str):
+    """(file, line) of every function of the port with a default argument
+    of ``device`` or ``torch.device(device)``."""
     bad = []
     for path in _port_files():
         with open(path) as fh:
@@ -68,9 +70,37 @@ def test_no_function_defaults_to_the_cpu():
                                  ast.Lambda)):
                 args = node.args
                 for d in args.defaults + [d for d in args.kw_defaults if d]:
-                    if _defaults_to_the_cpu(d):
+                    if _defaults_to_the_device(d, device):
                         bad.append((os.path.relpath(path, ROOT), node.lineno))
+    return bad
+
+
+def test_no_function_defaults_to_the_cpu():
+    """The CPU runs only where a caller names it: no default argument of
+    the port says "cpu"."""
+    bad = _defaults_to("cpu")
     assert not bad, bad
+
+
+def test_no_function_defaults_to_meta():
+    """``meta`` tensors (the dry run's) are made only where a caller names
+    the device: no default argument of the port says "meta"."""
+    bad = _defaults_to("meta")
+    assert not bad, bad
+
+
+def test_meta_only_when_named():
+    """``resolve_device`` returns ``meta`` when asked for it, and never in
+    place of a missing card."""
+    from repro_torch.device import resolve_device
+    assert resolve_device("meta") == torch.device("meta")
+    assert resolve_device(torch.device("meta")).type == "meta"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device(device)
 
 
 def test_build_dir_is_the_checkout_or_the_user_cache(tmp_path, monkeypatch):

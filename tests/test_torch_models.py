@@ -92,17 +92,30 @@ def test_configs_match_jax_field_for_field():
         assert tb.cfg.dtype == torch.bfloat16
 
 
-def test_sequence_sharded_cache_still_raises():
-    """``ShardCfg.cache_seq`` is the one part of the zoo's float path that
-    is not ported: it needs a device mesh."""
+def test_sequence_sharded_cache_equals_unsharded():
+    """``ShardCfg.cache_seq`` changes only which op writes a decode step's
+    key and value: a cached prefill and 4 greedy decode steps give the
+    same logits and tokens, bit for bit, with and without it (its one
+    difference, a full cache, is pinned against JAX in
+    tests/test_torch_dryrun.py)."""
     cfg = get_arch("tinyllama_1_1b").smoke
-    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1,
-                       cache_seq=("data",), cache_seq_size=1)
-    params = M.init(cfg, sh, torch.Generator().manual_seed(0), device="cpu")
-    caches = M.make_caches(cfg, sh, B, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="cache_seq"):
-        M.forward(cfg, sh, params, torch.zeros((B, 4), dtype=torch.int64),
-                  caches=caches)
+    params = M.init(cfg, cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1),
+                    torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.as_tensor(_tokens(cfg, n=8))
+    runs = []
+    for cache_seq in ((), ("model",)):
+        sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1,
+                           cache_seq=cache_seq, cache_seq_size=1)
+        caches = M.make_caches(cfg, sh, B, 16, device="cpu")
+        logits, caches, _ = M.forward(cfg, sh, params, prompt, caches=caches)
+        out, tok = [logits], logits[:, -1].argmax(-1)
+        for i in range(8, 12):
+            lg, caches = M.decode_step(cfg, sh, params, tok[:, None],
+                                       torch.full((B,), i), caches)
+            tok = lg.argmax(-1)
+            out += [lg, tok]
+        runs.append(out)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_init_params_shapes_and_generator():
