@@ -52,7 +52,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              queries again, one attest each at ProofService's default
              worker count (2 threads, the round batcher on): bytes equal,
              seconds against the serial ones, the batcher's counters and
-             its claims' waits.
+             its claims' waits.  Last, the chain's first layer alone (a
+             one-layer service from the same seed) attests query 0: its
+             canonical v2 bytes and ModelCard must equal the JAX package's
+             tests/data/golden_d128_{v2,card}.bin, and the card's verifier
+             must accept the golden and reject it with a flipped byte.
 6. analysis — the soundness analysis in-process on the card
              (``python -m repro_torch.analysis --all --mutants``): zero
              findings, every kernel equal to its plain version on edge
@@ -83,7 +87,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counted apart as ``ntt_long_rows``).  The kernels phase holds
              that path against the plain version; k2long times it at the
              llama path's shapes and holds it against the plain version
-             at 512 rows.
+             at 512 rows, then commits a 2^16-word vector in codeword rows
+             of 2^16 words and opens it at one point: root, ``us``,
+             ``u_prox``, columns, Merkle paths and transcript state equal
+             to the JAX package's tests/data/golden_pcs_long.npz word for
+             word, the golden bundle accepted by the card's verifier.
 
 8. gateway — the serving tier on the serve phase's chain: two clients
              each send 2 queries at once (one connection a query) to an
@@ -178,7 +186,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              tests/test_torch_train_step.py's bound.  No kernel of the
              port runs here: the training step is PyTorch's matmuls and
              autograd, as the JAX package's is plain ``jnp``.
-16. dryrun — ``launch.dryrun`` (no kernel of the port runs here): the
+16. dryrun — ``launch.dryrun`` (no kernel of the port runs here), every
+             cell on the stacked parameter tree (``scan_layers``): the
              records of two production cells traced on meta
              (DRYRUN_PRODUCTION); then three one-device cells
              (DRYRUN_CARD_CELLS, batch cuts printed as ``reduced``) whose
@@ -197,6 +206,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              prefill and 4 greedy decode steps of the tinyllama smoke
              config with and without ``ShardCfg.cache_seq``, logits and
              tokens equal bit for bit.
+17. scan   — the stacked-layer layout (``scan_layers``; no kernel of the
+             port runs here): gemma3-1b (26 layers: 6 x 4 stacked and a
+             tail of 2) and xlstm-350m (24: 4 x 6) at full width and
+             depth, bf16, weights from a torch.Generator; ``generate``
+             (batch 2, a 16-token prompt, 8 new tokens, LUT ops on) and a
+             no-cache forward on the stacked tree and on the per-layer
+             tree of the same weights: tokens equal, the largest logit
+             difference printed and within ARGMAX_TIE of the largest
+             |logit|; decode ms per step and peak allocated of each.  GPT-2
+             Small trained 4 steps on the stacked tree (TRAIN_CFG, int8
+             compression on): the first batch's loss must fall.  The
+             smoke config's stacked train step (compression on) on the
+             card against the CPU's, as the train phase's twin.
 
 Then one ``{"kernels": [...]}`` line (K3's multi-claim calls as a row of
 their own), the nvidia-smi line, and the final ``{"ok": true, "device":
@@ -370,6 +392,21 @@ DRYRUN_CARD_CELLS = (("qwen1_5_0_5b", "decode_32k", 4),
                      ("qwen1_5_0_5b", "train_4k", 1),
                      ("xlstm_350m", "long_500k", None))
 DRYRUN_CACHE_SEQ_STEPS = 4
+
+# The stacked-layer layout (model.scan_split) at full width and depth,
+# bf16, random weights as in the zoo phase: gemma3-1b (6 x 4 stacked, a
+# tail of 2) and xlstm-350m (4 x 6), generate on the stacked tree and on
+# the per-layer tree of the same weights (views); GPT-2 Small trained
+# SCAN_TRAIN_STEPS steps on the stacked tree (TRAIN_CFG, compression on).
+SCAN_ARCHS = ("gemma3_1b", "xlstm_350m")
+SCAN_TRAIN_STEPS = 4
+
+# JAX-made goldens: the served chain's first layer at d=128
+# (tests/data/gen_golden_d128.py) and the long-row PCS opening at one point
+# (tests/data/gen_golden_pcs_long.py: 2^16 words from seed 61 committed at
+# aspect -6, opened at the point from seed 70 from a fresh transcript).
+GOLDEN_PCS_LONG = dict(words=1 << 16, aspect=-6, vec_seed=61, point_seed=70,
+                       label="long-rows")
 
 
 def emit(obj) -> None:
@@ -946,6 +983,68 @@ def time_k2_long(dev, gen):
     return out
 
 
+def golden_pcs_long(dev):
+    """The long-row PCS opening at one point on the card against the JAX
+    package's (tests/data/golden_pcs_long.npz): commit the 2^16-word vector
+    at aspect -6 (codeword rows of 2^16 words: K2's two-launch path) and
+    open it at one point from a fresh transcript; the root, ``us``,
+    ``u_prox``, the columns, the Merkle paths and the transcript's state
+    must equal the golden word for word, and the card's verifier must
+    accept the golden bundle at its value.  Launches per kernel over the
+    commit and the opening."""
+    import numpy as np
+    from repro_torch.core import field as F
+    from repro_torch.core import pcs as PCS
+    from repro_torch.core.merkle import MerklePath
+    from repro_torch.core.transcript import Transcript
+    g = GOLDEN_PCS_LONG
+    gold = dict(np.load(os.path.join(DATA, "golden_pcs_long.npz")))
+
+    def words(seed, shape):
+        a = np.random.default_rng(seed).integers(0, P, size=shape,
+                                                 dtype=np.int64)
+        a.reshape(-1)[:len(EDGE_WORDS)] = EDGE_WORDS
+        return a.astype(np.uint32)
+    params = PCS.PCSParams()
+    reset_counts()
+    t0 = time.monotonic()
+    com = PCS.commit(F.tensor(words(g["vec_seed"], (g["words"],)), dev),
+                     params, aspect=g["aspect"])
+    point = words(g["point_seed"], (com.log_r + com.log_c, 4))
+    tr = Transcript(g["label"], dev)
+    bundle = PCS.prove_openings(com, [F.tensor(point, dev)], tr, params)
+    seconds = time.monotonic() - t0
+    launches = launch_counts()
+    got = dict(root=np.asarray(com.root), us=np.asarray(bundle.us),
+               u_prox=np.asarray(bundle.u_prox),
+               columns=np.asarray(bundle.columns),
+               path_index=np.asarray([p.index for p in bundle.paths]),
+               path_siblings=np.stack([np.asarray(p.siblings)
+                                       for p in bundle.paths]),
+               state=F.to_np(tr.state))
+    differ = [k for k, v in got.items()
+              if v.shape != gold[k].shape or not np.array_equal(v, gold[k])]
+    if differ:
+        fail("k2long", f"1-point long-row opening differs from "
+             f"golden_pcs_long.npz in {differ}")
+    if launches["ntt_long_rows"] == 0:
+        fail("k2long", "the long-row commit launched no long-row K2")
+    golden = PCS.OpeningBundle(
+        us=gold["us"], u_prox=gold["u_prox"], columns=gold["columns"],
+        paths=[MerklePath(int(i), sib) for i, sib in
+               zip(gold["path_index"], gold["path_siblings"])])
+    vt = Transcript(g["label"], dev)
+    if not PCS.verify_openings(gold["root"], com.log_r, com.log_c,
+                               [F.tensor(point, dev)],
+                               [F.tensor(gold["value"], dev)], golden, vt,
+                               params) or \
+            not np.array_equal(F.to_np(vt.state), gold["state"]):
+        fail("k2long", "the card's verifier rejected golden_pcs_long.npz")
+    return dict(words=g["words"], rows=1 << com.log_r, row_words=1 << com.log_c,
+                codeword_words=int(com.enc.shape[1]), seconds=seconds,
+                launches=launches, equal=sorted(got))
+
+
 def time_k1k3(dev, gen):
     """K1 and K3 at the main path's dominant shapes: CUDA-event ms per call,
     device ms per call (torch.profiler), launches per call, bound.  Uses only
@@ -1133,12 +1232,62 @@ def serve_phase(dev, cache, twins):
             fail("serve", f"{k} calls of one attest {got} != {want}")
     out["e_vec"] = time_e_vec(e_vec_calls)
     out["default_workers"] = default_worker_attests(dev, cache, twins)
+    out["golden_d128"] = golden_d128(dev)
     plain = sorted(r["seconds"] for r in out["requests"] if not r["profiled"])
     if plain and out["profile"]["device_busy_ms"] is not None:
         # device busy time of the traced attest over the median untraced one
         out["profile"]["busy_share_of_untraced_request"] = (
             out["profile"]["device_busy_ms"] / 1e3 / plain[len(plain) // 2])
     return out
+
+
+def golden_d128(dev):
+    """The served chain's first layer (a one-layer service from SEED's
+    first weight draw) attests serve_query(0) once on the card: its
+    canonical v2 bytes must equal tests/data/golden_d128_v2.bin and its
+    ModelCard golden_d128_card.bin (the JAX package's, from
+    tests/data/gen_golden_d128.py); the card's verifier must accept the
+    golden and reject it with one byte flipped."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import blocks as B
+    gold = {}
+    for k in ("v2", "card"):
+        with open(os.path.join(DATA, f"golden_d128_{k}.bin"), "rb") as fh:
+            gold[k] = fh.read()
+    cfg = B.BlockCfg(**SERVE_CFG)
+    weights = [B.init_weights(cfg, np.random.default_rng(SEED))]
+    policy = api.VerifyPolicy(pcs_queries=PCS_QUERIES)
+    x = serve_query(0)
+    t0 = time.monotonic()
+    with api.ProofService([cfg], weights, pcs_blowup=PCS_BLOWUP,
+                          default_queries=PCS_QUERIES, workers=1,
+                          name="chip-smoke", device=dev) as svc:
+        card = svc.model_card.to_bytes()
+        setup_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        att = svc.attest(x, policy)
+        attest_s = time.monotonic() - t0
+    if card != gold["card"]:
+        fail("serve", "d=128 ModelCard bytes differ from golden_d128_card.bin")
+    wire = canonical_v2(att)
+    if wire != gold["v2"]:
+        first = next((i for i, (a, b) in enumerate(zip(wire, gold["v2"]))
+                      if a != b), min(len(wire), len(gold["v2"])))
+        fail("serve", f"d=128 attestation ({len(wire)} B) differs from "
+             f"golden_d128_v2.bin ({len(gold['v2'])} B) from byte {first}")
+    t0 = time.monotonic()
+    rep = api.verify(gold["v2"], x, card, policy, device=dev)
+    verify_s = time.monotonic() - t0
+    if not rep.ok:
+        fail("serve", f"verify rejected golden_d128_v2.bin: {rep.reason}")
+    flipped = bytearray(gold["v2"])
+    flipped[len(flipped) // 2] ^= 0x01
+    if api.verify(bytes(flipped), x, card, policy, device=dev).ok:
+        fail("serve", "verify accepted a flipped golden_d128_v2.bin")
+    return dict(layers=1, setup_seconds=setup_s, attest_seconds=attest_s,
+                verify_seconds=verify_s, v2_bytes=len(wire),
+                bytes_equal=True, card_equal=True)
 
 
 def batcher_waits(r) -> dict:
@@ -2396,11 +2545,13 @@ def serve_cli_phase(dev):
     return out
 
 
-def train_step_twin(device, compress: bool, steps: int):
+def train_step_twin(device, compress: bool, steps: int,
+                    scan_layers: bool = False):
     """``make_train_step`` on TRAIN_TWIN_ARCH's smoke config at float32
-    compute, weights drawn on the CPU from seed 0: ``steps`` steps at lr
-    TRAIN_TWIN_LR, 2 microbatches, int8 compression on or off.  The
-    losses, grad norms and final weights (float32 host arrays)."""
+    compute, weights drawn on the CPU from seed 0 (the stacked tree with
+    ``scan_layers``): ``steps`` steps at lr TRAIN_TWIN_LR, 2 microbatches,
+    int8 compression on or off.  The losses, grad norms and final weights
+    (float32 host arrays)."""
     import dataclasses
     import torch
     from repro_torch._tree import leaves, tree_map
@@ -2413,10 +2564,12 @@ def train_step_twin(device, compress: bool, steps: int):
                               dtype=torch.float32)
     sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
     params = tree_map(lambda p: p.to(device), M.init(
-        cfg, sh, torch.Generator().manual_seed(SEED), torch.device("cpu")))
+        cfg, sh, torch.Generator().manual_seed(SEED), torch.device("cpu"),
+        scan_layers))
     opt = adamw.AdamWCfg(lr=TRAIN_TWIN_LR, warmup_steps=1, total_steps=steps)
     step = T.make_train_step(cfg, sh, opt, T.TrainCfg(
-        microbatches=2, compress_grads=compress, remat=True))
+        microbatches=2, compress_grads=compress, remat=True,
+        scan_layers=scan_layers))
     st, ef = adamw.init(params), compression.init_ef(params)
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab, SEED), 4, 16)
     metrics = []
@@ -2428,7 +2581,8 @@ def train_step_twin(device, compress: bool, steps: int):
     return metrics, [p.float().cpu().numpy() for p in leaves(params)]
 
 
-def check_train_twin(dev, compress: bool, steps: int):
+def check_train_twin(dev, compress: bool, steps: int,
+                     scan_layers: bool = False, phase: str = "train"):
     """The card's smoke-config steps against the CPU's: losses and grad
     norms within TRAIN_TWIN_RTOL; every weight within 2 lr k + 2^-7 |p|
     (a near-zero gradient or an int8 code that rounds the other way moves
@@ -2439,13 +2593,14 @@ def check_train_twin(dev, compress: bool, steps: int):
     import numpy as np
     import torch
     if torch.backends.cuda.matmul.allow_tf32:
-        fail("train", "TF32 matmuls are on: the twin must compare float32")
-    card, card_w = train_step_twin(dev, compress, steps)
-    cpu, cpu_w = train_step_twin(torch.device("cpu"), compress, steps)
+        fail(phase, "TF32 matmuls are on: the twin must compare float32")
+    card, card_w = train_step_twin(dev, compress, steps, scan_layers)
+    cpu, cpu_w = train_step_twin(torch.device("cpu"), compress, steps,
+                                 scan_layers)
     rel = max(abs(a - c) / abs(c) for x, y in zip(card, cpu)
               for a, c in zip(x, y))
     if rel > TRAIN_TWIN_RTOL:
-        fail("train", f"compress={compress}: card loss/grad norm {card} != "
+        fail(phase, f"compress={compress}: card loss/grad norm {card} != "
              f"CPU {cpu}")
     bound = 2 * TRAIN_TWIN_LR * steps
     changed = total = 0
@@ -2453,15 +2608,16 @@ def check_train_twin(dev, compress: bool, steps: int):
     for a, b in zip(card_w, cpu_w):
         d = np.abs(a - b)
         if not np.all(d <= bound + 2.0 ** -7 * np.abs(b)):
-            fail("train", f"compress={compress}: a weight differs by "
+            fail(phase, f"compress={compress}: a weight differs by "
                  f"{float(d.max())} between the card's step and the CPU's")
         changed += int(np.count_nonzero(d))
         total += b.size
         worst = max(worst, float(d.max()))
     if changed > TRAIN_TWIN_CHANGED_SHARE * total:
-        fail("train", f"compress={compress}: {changed} of {total} weights "
+        fail(phase, f"compress={compress}: {changed} of {total} weights "
              "differ between the card's step and the CPU's")
     return dict(arch=TRAIN_TWIN_ARCH, compress=compress, steps=steps,
+                scan_layers=scan_layers,
                 card=card, cpu=cpu, max_rel=rel, weights_changed=changed,
                 weights=total, max_weight_diff=worst)
 
@@ -2687,6 +2843,7 @@ def dryrun_phase(dev, smi_line: str):
             device=dev).manual_seed(SEED))
         est = got.pop("estimate")
         rec = {"cell": f"{arch}.{shape}.{D.mesh_name(mesh)}",
+               "scan_layers": cell.scan_layers,
                "reduced": {"batch": [full, cell.batch]} if batch else {},
                "nvidia_smi": smi_line, "seconds": time.monotonic() - t0,
                "estimate": {k: est[k] for k in (
@@ -2700,6 +2857,134 @@ def dryrun_phase(dev, smi_line: str):
     gc.collect()
     torch.cuda.empty_cache()
     out["cache_seq"] = dryrun_cache_seq(dev)
+    return out
+
+
+def scan_generate(dev, arch: str):
+    """SCAN_ARCHS' run: the full config at full width and depth, bf16,
+    weights drawn by ``model.init(..., scan_layers=True)`` from SEED
+    (embedding x EMBED_SCALE); ``generate`` (LUT ops on; a warm run of
+    each layout, then two timed runs of each in turns) and a no-cache
+    forward over the generated tokens on the stacked tree and on its
+    per-layer tree of views (``model.unstack``): tokens equal, the
+    largest logit difference within ARGMAX_TIE of the largest |logit|;
+    prefill ms, decode ms per step and the peak allocated above the
+    weights of each timed run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = get_arch(arch).cfg
+    sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    period, reps = M.scan_split(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(cfg, sh, gen, dev, scan_layers=True)
+    params["embed"] = params["embed"] * EMBED_SCALE
+    prompt = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                           generator=gen, device=dev)
+    rec = dict(layers=cfg.n_layers, period=period, reps=reps,
+               tail=cfg.n_layers - period * reps, d=cfg.d, vocab=cfg.vocab,
+               dtype=str(cfg.dtype), new_tokens=ZOO_NEW_TOKENS,
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in _leaves(params)), layouts={})
+    sc = S.ServeCfg(max_new_tokens=ZOO_NEW_TOKENS)
+    trees = {"stacked": params, "per_layer": M.unstack(cfg, params)}
+    runs = {}
+    for name, tree in trees.items():
+        S.generate(cfg, sh, tree, prompt, sc)                      # warm
+        rec["layouts"][name] = dict(prefill_ms=[], decode_ms_per_step=[],
+                                    peak_over_weights=[])
+    # timed in turns (stacked, per-layer, per-layer, stacked): the host's
+    # speed drifts within a call
+    for name in ("stacked", "per_layer", "per_layer", "stacked"):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats = {}
+        toks = S.generate(cfg, sh, trees[name], prompt, sc, stats=stats)
+        r = rec["layouts"][name]
+        r["peak_over_weights"].append(torch.cuda.max_memory_allocated(dev)
+                                      - base)
+        r["prefill_ms"].append(stats["prefill_seconds"] * 1e3)
+        r["decode_ms_per_step"].append(stats["decode_seconds"] * 1e3
+                                       / stats["decode_steps"])
+        if name in runs:
+            continue
+        with torch.no_grad():
+            logits, _, _ = M.forward(cfg, sh, trees[name],
+                                     torch.cat([prompt, toks[:, :-1]], 1),
+                                     use_lut=True)
+        runs[name] = (toks, logits)
+    (ts, ls), (tp, lp) = runs["stacked"], runs["per_layer"]
+    if not torch.equal(ts, tp):
+        fail("scan", f"{arch}: generate gave different tokens on the stacked "
+             "and the per-layer tree")
+    diff = float((ls.float() - lp.float()).abs().max())
+    scale = float(lp.float().abs().max())
+    if not diff <= ARGMAX_TIE * scale:
+        fail("scan", f"{arch}: logits differ by {diff} between the layouts "
+             f"(> {ARGMAX_TIE} x {scale})")
+    rec.update(tokens_equal=True, max_abs_logit_diff=diff,
+               logits_bit_equal=bool(torch.equal(ls, lp)), logit_scale=scale)
+    del params, trees, runs, ls, lp
+    return rec
+
+
+def scan_train(dev, tmp):
+    """GPT-2 Small at full width and depth trained SCAN_TRAIN_STEPS steps on
+    the stacked tree (TRAIN_CFG: compression on), then the loss of the
+    first step's batch before and after (it must fall)."""
+    import torch
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    rec = {}
+    out, _ = train_run(dev, "gpt2_small", "run", rec, steps=SCAN_TRAIN_STEPS,
+                       scan_layers=True, ckpt_dir=os.path.join(tmp, "scan"),
+                       ckpt_every=SCAN_TRAIN_STEPS + 1)
+    cfg, sh = out["cfg"], out["sh"]
+    if "blocks" not in out["params"]:
+        fail("scan", "gpt2_small trained on the per-layer tree")
+    tc = T.TrainCfg(**TRAIN_CFG)
+    toks, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in
+                    DataPipeline(SyntheticCorpus(cfg.vocab, tc.seed),
+                                 tc.batch, tc.seq).next_batch())
+    init = M.init(cfg, sh, torch.Generator(device=dev).manual_seed(tc.seed),
+                  dev, scan_layers=True)
+    with torch.no_grad():
+        before = float(M.loss_fn(cfg, sh, init, toks, labels, remat=False))
+        after = float(M.loss_fn(cfg, sh, out["params"], toks, labels,
+                                remat=False))
+    if not after < before:
+        fail("scan", f"gpt2_small stacked: the first batch's loss {after} "
+             f"after {SCAN_TRAIN_STEPS} steps is not below {before}")
+    rec.update(first_batch_loss_before=before, first_batch_loss_after=after,
+               period=M.scan_split(cfg)[0], reps=M.scan_split(cfg)[1])
+    del out, init
+    return rec
+
+
+def scan_phase(dev, smi_line: str):
+    """The stacked-layer layout on the card (see the module's docstring,
+    phase 17)."""
+    import tempfile
+    out = {"nvidia_smi": smi_line, "generate": {}}
+    for arch in SCAN_ARCHS:
+        t0 = time.monotonic()
+        out["generate"][arch] = scan_generate(dev, arch)
+        out["generate"][arch]["seconds"] = time.monotonic() - t0
+        progress("scan", f"{arch} done", t0)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = scan_train(dev, tmp)
+    out["train"]["seconds"] = time.monotonic() - t0
+    out["twin"] = check_train_twin(dev, True, 1, scan_layers=True,
+                                   phase="scan")
     return out
 
 
@@ -2858,8 +3143,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     k2long = time_k2_long(dev, np.random.default_rng(SEED + 3))
+    pcs_long = golden_pcs_long(dev)
     emit({"phase": "k2long", "ok": True, "seconds": time.monotonic() - t0,
-          "times": k2long})
+          "times": k2long, "golden_pcs_long": pcs_long})
 
     # the serving tier on the d=128 chain; each path's counts zeroed just
     # before it and read just after (gateway_phase zeroes them after its
@@ -2951,6 +3237,13 @@ def main() -> int:
     dry = dryrun_phase(dev, smi_line)
     emit({"phase": "dryrun", "ok": True, "seconds": time.monotonic() - t0,
           **dry})
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    scan = scan_phase(dev, smi_line)
+    emit({"phase": "scan", "ok": True, "seconds": time.monotonic() - t0,
+          **scan})
 
     kernels = []
     for name, _, src, replaces in kernel_modules():

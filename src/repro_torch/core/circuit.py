@@ -139,9 +139,19 @@ def view_log_n(v: View) -> int:
     raise TypeError(v)
 
 
+def scaled(v: View, c: int) -> Affine:
+    """c * v, c reduced mod P."""
+    return Affine(terms=((c % F.P, v),))
+
+
 def subslice(sl: Slice, offset_elems: int, log_n: int) -> Slice:
     """A contiguous sub-range of an existing slice (offsets compose)."""
     return Slice(sl.com, sl.offset + offset_elems, log_n)
+
+
+def vadd(*vs: View) -> Affine:
+    """The sum of the views, each with coefficient 1."""
+    return Affine(terms=tuple((1, v) for v in vs))
 
 
 def vaff(terms, const=0) -> Affine:

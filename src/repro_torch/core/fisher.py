@@ -41,6 +41,14 @@ class FisherScores:
         return float(self.importance.sum())
 
 
+def estimate(loss_per_layer_grads: Callable, params_tree: Sequence,
+             batch_inputs: torch.Tensor, generator: torch.Generator,
+             n_samples: int = 4) -> FisherScores:
+    """The JAX package's generic estimator, a stub there as here: the
+    model-bound path is ``fisher_from_logprob_fn``."""
+    raise NotImplementedError("use fisher_from_logprob_fn")
+
+
 def fisher_from_logprob_fn(logprob_fn: Callable, layer_params: List,
                            inputs, generator: torch.Generator,
                            n_samples: int = 2) -> FisherScores:

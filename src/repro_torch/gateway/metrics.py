@@ -13,7 +13,7 @@ is a rank-70 leaf — no other lock is ever acquired while it is held.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 class Histogram:
@@ -140,3 +140,9 @@ class GatewayMetrics:
                                   for k, h in self.stage_seconds.items()},
             }
 
+
+def merge_batch_sizes(snapshot: Dict) -> List[List[int]]:
+    """Flatten a snapshot's coalesce histogram into [size, count] pairs,
+    empty buckets left out (for benchmark reporting)."""
+    buckets = snapshot["coalesce"]["batch_size"]["buckets"]
+    return [[k, v] for k, v in buckets.items() if v]

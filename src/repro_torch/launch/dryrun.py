@@ -15,8 +15,10 @@ each cell:
   names (``per_device_sizes``), and the blocks the caching allocator
   gives them lie within bounds set by its rule (``allocator_bounds``);
 * the step (``loss_fn`` + backward + ``adamw.update`` with remat for
-  train, ``forward`` for prefill, ``decode_step`` for decode) is traced at
-  full width and depth and at one device's batch, under three counters:
+  train, ``forward`` for prefill, ``decode_step`` for decode) on the
+  stacked parameter tree (``scan_layers``, as the JAX package's dry run)
+  is traced at full width and depth and at one device's batch, under
+  three counters:
   ``FlopCounterMode``, the bytes every op reads and writes, and the peak of
   bytes live beyond the arguments (``TraceCounter``);
 * FLOPs and bytes are split evenly over the model axis.
@@ -191,6 +193,12 @@ class Cell:
     step: Callable
 
     @property
+    def scan_layers(self) -> bool:
+        """Whether the parameters are the stacked tree (as ``build_cell``
+        makes them) or the per-layer one."""
+        return "blocks" in self.params
+
+    @property
     def per_device_batch(self) -> int:
         dp_size = self.mesh.axes()[2]
         return self.batch // dp_size if self.sh.batch_dp else self.batch
@@ -203,8 +211,9 @@ class Cell:
         batch = self.batch if batch is None else batch
         dp = sh.dp if sh.batch_dp else None
         inp = input_specs(cfg, dict(seq=self.seq, batch=batch, mode=mode))
+        scan = self.scan_layers
         args: Dict[str, Any] = {"params": self.params}
-        specs: Dict[str, Any] = {"params": MDL.specs(cfg, sh)}
+        specs: Dict[str, Any] = {"params": MDL.specs(cfg, sh, scan)}
         if mode == "train":
             args["opt_state"] = self.opt_state
             specs["opt_state"] = adamw.state_specs(specs["params"])
@@ -214,8 +223,8 @@ class Cell:
             args["tokens"], specs["tokens"] = inp["tokens"], P(dp, None)
         else:
             args["caches"] = MDL.make_caches(cfg, sh, batch, self.seq,
-                                             device=device)
-            specs["caches"] = MDL.cache_specs(cfg, sh)
+                                             device=device, scan_layers=scan)
+            specs["caches"] = MDL.cache_specs(cfg, sh, scan)
             args["token"], specs["token"] = inp["token"], P(dp, None)
             args["pos"], specs["pos"] = inp["pos"], P(dp)
         if cfg.encoder is not None:
@@ -262,6 +271,8 @@ def build_cell(arch: str, shape: str, multi_pod: bool = False, *,
                mesh: Optional[Mesh] = None, batch: Optional[int] = None,
                hbm_bytes: float = HBM_BYTES):
     """Returns (Cell, None), or (None, skip reason) for a skipped shape.
+    The parameters (and a decode cell's caches) are the stacked tree
+    (``scan_layers``), the argument tree the JAX package's dry run lowers.
     ``mesh`` defaults to the production mesh; ``batch`` replaces the
     shape's global batch (a cut, which the caller reports)."""
     bundle = get_arch(arch)
@@ -273,7 +284,7 @@ def build_cell(arch: str, shape: str, multi_pod: bool = False, *,
         sp = dict(sp, batch=batch)
     mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
     sh = shard_cfg(cfg, sp, mesh, hbm_bytes)
-    params = MDL.shapes(cfg, sh)
+    params = MDL.shapes(cfg, sh, scan_layers=True)
     opt_state = adamw.init(params) if sp["mode"] == "train" else None
     return Cell(arch=arch, shape=shape, mode=sp["mode"], cfg=cfg, sh=sh,
                 mesh=mesh, seq=sp["seq"], batch=sp["batch"], params=params,
@@ -426,7 +437,7 @@ def materialize(cell: Cell, device, gen: torch.Generator) -> Dict[str, Any]:
     dev = resolve_device(device)
     meta, _ = cell.arguments("meta")
     args, _ = cell.arguments(dev)
-    args["params"] = MDL.init(cell.cfg, cell.sh, gen, dev)
+    args["params"] = MDL.init(cell.cfg, cell.sh, gen, dev, cell.scan_layers)
     if "opt_state" in args:
         args["opt_state"] = adamw.init(args["params"])
     for k in ("tokens", "labels", "token"):

@@ -61,12 +61,14 @@ def generate(cfg, sh, params, prompt: torch.Tensor, serve_cfg: ServeCfg,
     """Greedy (or, with a temperature and ``gen``, sampled) decode with KV
     caches, LUT ops on unless ``use_lut`` is False; runs where ``prompt``
     lies.  A ``stats`` dict receives the prefill's and the decode steps'
-    wall seconds (the device synchronised at each end)."""
+    wall seconds (the device synchronised at each end).  A stacked
+    parameter tree (``scan_layers``) decodes through stacked caches."""
     B, S = prompt.shape
     dev = prompt.device
     clock = _Clock(dev, stats)
     max_len = S + serve_cfg.max_new_tokens
-    caches = MDL.make_caches(cfg, sh, B, max_len, dev)
+    caches = MDL.make_caches(cfg, sh, B, max_len, dev,
+                             scan_layers="blocks" in params)
     logits, caches, _ = MDL.forward(cfg, sh, params, prompt,
                                     caches=caches, use_lut=use_lut)
     tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]

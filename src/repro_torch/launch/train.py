@@ -14,8 +14,7 @@ Everything runs on ``cuda`` unless ``--device`` (or ``device=``) names
 another device; without a card it raises.  Differences from the JAX
 package (ROADMAP "Kept differences"): one device only (``mesh`` takes
 a one-device ``launch.mesh.Mesh`` or None, ``multi_pod`` must be False),
-``scan_layers=True``
-raises (the stacked ``"blocks"`` layout is not ported), the returned dict
+the returned dict
 has no ``mesh`` but the seconds of each step and of each batch's host
 work, and the weights are the port's draws from a ``torch.Generator``
 (weights cross from the JAX package by ``models.model.params_from_numpy``
@@ -106,10 +105,6 @@ def train(arch: str, train_cfg: TrainCfg, smoke: bool = True,
             "repro_torch trains on one card: mesh takes only a one-device "
             "mesh (launch.mesh.make_debug_mesh(1, 1)), and multi_pod is "
             "not supported")
-    if train_cfg.scan_layers:
-        raise NotImplementedError(
-            "scan_layers (the stacked 'blocks' parameter layout) is not "
-            "part of repro_torch: forward runs the plain layer loop")
     bundle = get_arch(arch)
     cfg = bundle.smoke if smoke else bundle.cfg
     sh = cfg.shard_cfg(dp=("data",), tp_size=1, dp_size=1)
@@ -120,7 +115,7 @@ def train(arch: str, train_cfg: TrainCfg, smoke: bool = True,
                             train_cfg.batch, train_cfg.seq)
     monitor = HeartbeatMonitor(["host0"])
 
-    params = MDL.init(cfg, sh, gen, dev)
+    params = MDL.init(cfg, sh, gen, dev, train_cfg.scan_layers)
     opt_state = adamw.init(params)
     ef_state = compression.init_ef(params) \
         if train_cfg.compress_grads else compression.EFState(residual=0)

@@ -3,12 +3,25 @@
 A ModelCfg is a per-layer program: attention, Mamba, mLSTM or sLSTM
 mixers, dense-MLP or MoE FFNs, and an optional encoder stack whose output
 the decoder layers cross-attend (whisper).  One ``forward`` covers
-training, prefill and decode; caches are a list with one dict per layer.
-``forward`` runs the plain layer loop: the JAX package's
-scan-over-layers (``scan_layers``, ``scan_split``, ``_stack_defs``) is a
-compile-time device with the same numbers and is not ported, so
-``specs``, ``shapes``, ``cache_specs`` and ``make_caches`` give the
-per-layer trees the JAX package gives without ``scan_layers``.
+training, prefill and decode.
+
+Two parameter layouts, as in the JAX package:
+
+* per layer (the default): ``"layers"``, a list of one dict per layer
+  (``"enc_layers"`` for the encoder), and caches as a list with one dict
+  per layer;
+* stacked (``scan_layers=True``): the layers split into ``reps``
+  repetitions of a period of ``period`` layers (``scan_split``), each of
+  the period's positions one dict ``"blocks"/"pos{j}"`` whose leaves
+  carry a leading ``reps`` axis (spec ``P(None, *spec)``), the layers past
+  ``period * reps`` a list ``"tail"``; the encoder's layers stacked whole
+  as ``"enc_blocks"`` beside an empty ``"enc_tail"``; caches stacked the
+  same way (``{"blocks": {...}, "tail": [...]}``).  ``forward`` runs the
+  stacked tree as the JAX package's ``lax.scan`` does, one layer at a
+  time on views of the stacked leaves, and gives the same numbers as the
+  per-layer tree holding the same weights.
+
+``forward`` picks the layout from the tree (``"blocks" in params``).
 """
 from __future__ import annotations
 
@@ -21,6 +34,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch._tree import tree_map
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -149,10 +163,13 @@ def _encoder_cfg(cfg: ModelCfg) -> ModelCfg:
     return dataclasses.replace(cfg, rope="none", qkv_bias=True)
 
 
-def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
-    """The parameter tree, as the JAX package's ``_fix_defs`` gives it
-    without ``scan_layers``: with an encoder, the decoder layers carry a
-    cross-attention block."""
+def model_defs(cfg: ModelCfg, sh: L.ShardCfg, scan_layers: bool = False
+               ) -> Dict:
+    """The parameter tree, as the JAX package's ``_fix_defs`` gives it:
+    with an encoder, the decoder layers carry a cross-attention block;
+    with ``scan_layers`` the stacked layout (``scan_split``), where a
+    split of (n, 1) still stacks every position with a leading axis of 1,
+    as the JAX package does."""
     check_supported(cfg)
     V = cfg.vocab_padded
     tp = sh.tp if V % sh.tp_size == 0 else None
@@ -179,33 +196,76 @@ def model_defs(cfg: ModelCfg, sh: L.ShardCfg) -> Dict:
         defs["enc_norm"] = L.norm_defs(cfg.norm, cfg.d)
         defs["enc_pos"] = L.ParamDef((cfg.encoder.frames, cfg.d),
                                      P(None, None), 0.01)
+    if scan_layers:
+        p, k = scan_split(cfg)
+        per_layer = defs.pop("layers")
+        defs["blocks"] = {
+            f"pos{j}": _stack_defs([per_layer[r * p + j] for r in range(k)])
+            for j in range(p)}
+        defs["tail"] = per_layer[p * k:]
+        if cfg.encoder is not None:
+            defs["enc_blocks"] = _stack_defs(defs.pop("enc_layers"))
+            defs["enc_tail"] = []
     return defs
 
 
-def specs(cfg: ModelCfg, sh: L.ShardCfg):
+def scan_split(cfg: ModelCfg) -> Tuple[int, int]:
+    """(period, reps): layers [0, period * reps) are stacked by their
+    position in the period, the rest run as an explicit tail.  The JAX
+    package's rule: the period whose pattern repeats at least twice and
+    leaves the fewest positions plus tail layers, the smallest on a tie;
+    (n, 1) where none repeats."""
+    layers = cfg.layers
+    n = len(layers)
+    best = (n, 1)
+    for p in range(1, n // 2 + 1):
+        k = n // p
+        if k < 2:
+            break
+        if all(layers[i] == layers[i % p] for i in range(k * p)):
+            if p + (n - k * p) < best[0] + (n - best[0] * best[1]):
+                best = (p, k)
+    return best
+
+
+def _stack_defs(defs_list):
+    """Identical per-layer def trees as one tree whose defs carry a new
+    leading axis of len(defs_list), unsharded (``P(None, *spec)``)."""
+    def stack(*ds):
+        d0 = ds[0]
+        return L.ParamDef(shape=(len(ds),) + tuple(d0.shape),
+                          spec=P(None, *d0.spec), init_scale=d0.init_scale,
+                          dtype=d0.dtype, zero=d0.zero)
+    return tree_map(stack, *defs_list)
+
+
+def specs(cfg: ModelCfg, sh: L.ShardCfg, scan_layers: bool = False):
     """The partition spec of every parameter (tuples of mesh-axis names)."""
-    return L.param_specs(model_defs(cfg, sh))
+    return L.param_specs(model_defs(cfg, sh, scan_layers))
 
 
-def shapes(cfg: ModelCfg, sh: L.ShardCfg):
+def shapes(cfg: ModelCfg, sh: L.ShardCfg, scan_layers: bool = False):
     """Every parameter as a ``meta`` tensor of its shape and dtype."""
-    return L.param_shapes(model_defs(cfg, sh))
+    return L.param_shapes(model_defs(cfg, sh, scan_layers))
 
 
-def init(cfg: ModelCfg, sh: L.ShardCfg, gen: torch.Generator, device=None):
-    """Random parameters from ``gen`` on ``device`` (see layers.init_params)."""
-    return L.init_params(model_defs(cfg, sh), gen, device)
+def init(cfg: ModelCfg, sh: L.ShardCfg, gen: torch.Generator, device=None,
+         scan_layers: bool = False):
+    """Random parameters from ``gen`` on ``device`` (see layers.init_params);
+    a stacked leaf is drawn whole."""
+    return L.init_params(model_defs(cfg, sh, scan_layers), gen, device)
 
 
 def params_from_numpy(cfg: ModelCfg, tree, sh: Optional[L.ShardCfg] = None,
-                      device=None):
+                      device=None, scan_layers: bool = False):
     """The JAX package's parameter tree, leaves as numpy, as the port's:
-    the same nesting and shapes, each leaf at its def's dtype on
-    ``device``.  A bfloat16 leaf (an ``ml_dtypes`` array, which
-    ``torch.from_numpy`` refuses) goes through float32, which holds every
-    bfloat16 value exactly."""
+    the same nesting and shapes (stacked with ``scan_layers``), each leaf
+    at its def's dtype on ``device``.  A bfloat16 leaf (an ``ml_dtypes``
+    array, which ``torch.from_numpy`` refuses) goes through float32, which
+    holds every bfloat16 value exactly."""
     dev = resolve_device(device)
-    defs = model_defs(cfg, sh if sh is not None else L.ShardCfg())
+    defs = model_defs(cfg, sh if sh is not None else L.ShardCfg(),
+                      scan_layers)
 
     def walk(d, t, path):
         if isinstance(d, L.ParamDef):
@@ -239,15 +299,50 @@ def _mixer(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg, lp, h,
     return X.slstm(cfg.xlstm_cfg("slstm"), sh, lp["mix"], h, cache)
 
 
+def _per_rep(tree, k: int) -> List:
+    """A stacked tree as ``k`` trees of views, the r-th holding ``x[r]`` of
+    every leaf: one ``unbind`` per leaf, whose backward stacks the k
+    gradients in one op (``x[r]`` alone would give each rep's gradient
+    as a zero-filled stack of its own)."""
+    views = tree_map(torch.unbind, tree)
+    return [tree_map(lambda v, r=r: v[r], views,
+                     is_leaf=lambda v: isinstance(v, tuple))
+            for r in range(k)]
+
+
+def unstack(cfg: ModelCfg, params):
+    """The per-layer tree of a stacked one, every leaf a view ``x[r]`` of
+    its stacked leaf (the same weights, no copy): layer ``r * period + j``
+    is ``blocks/pos{j}`` at ``r``, then the tail; the encoder's layers
+    likewise."""
+    p, k = scan_split(cfg)
+    out = {key: v for key, v in params.items()
+           if key not in ("blocks", "tail", "enc_blocks", "enc_tail")}
+    reps = {j: _per_rep(params["blocks"][f"pos{j}"], k) for j in range(p)}
+    out["layers"] = [reps[j][r] for r in range(k) for j in range(p)] + \
+        list(params["tail"])
+    if "enc_blocks" in params:
+        out["enc_layers"] = _per_rep(params["enc_blocks"],
+                                     cfg.encoder.n_layers) + \
+            list(params["enc_tail"])
+    return out
+
+
 def _encode(cfg: ModelCfg, sh: L.ShardCfg, params, enc_input: torch.Tensor,
             use_lut: bool) -> torch.Tensor:
     """The encoder stack over enc_input (B, frames, d), the precomputed
     frame embeddings of whisper's stubbed frontend: bidirectional
-    attention, learned positions, no cache."""
+    attention, learned positions, no cache.  A stacked encoder
+    (``enc_blocks``) runs its layers in order, as the JAX package's scan
+    does."""
     e = enc_input.to(cfg.dtype) + params["enc_pos"].to(cfg.dtype)
     enc_positions = torch.arange(e.shape[1], device=e.device)
     acfg = _encoder_cfg(cfg).attn_cfg(LayerSpec(kind="attn"), causal=False)
-    for lp in params["enc_layers"]:
+    if "enc_blocks" in params:
+        layers = _per_rep(params["enc_blocks"], cfg.encoder.n_layers)
+    else:
+        layers = params["enc_layers"]
+    for lp in layers:
         a, _ = L.attention(acfg, sh, lp["mix"],
                            L.apply_norm(cfg.norm, lp["n1"], e, use_lut),
                            enc_positions, use_lut)
@@ -257,15 +352,67 @@ def _encode(cfg: ModelCfg, sh: L.ShardCfg, params, enc_input: torch.Tensor,
     return L.apply_norm(cfg.norm, params["enc_norm"], e, use_lut)
 
 
+def _forward_stacked(cfg: ModelCfg, params, caches, h, body, aux_total):
+    """The layer loop over a stacked tree: for r in reps, for j in the
+    period, layer r * period + j on views of ``blocks/pos{j}`` at r (and of
+    its cache), then the tail.  ``aux`` sums as the JAX package's scan
+    does: per period, then over the reps, then the tail's.  A cache's
+    stacked tensors take each layer's new state in place; a KV cache's
+    ``len``, one host int per position, advances once for its reps.
+    Returns (h, new_caches, aux_total)."""
+    p, k = scan_split(cfg)
+    reps = {j: _per_rep(params["blocks"][f"pos{j}"], k) for j in range(p)}
+    dev = h.device
+    period_aux = []
+    new_len = {}
+    for r in range(k):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for j in range(p):
+            cache = None
+            if caches is not None:
+                stack = caches["blocks"][f"pos{j}"]
+                cache = {key: v if key == "len" else v[r]
+                         for key, v in stack.items()}
+            h, nc, aux = body(h, reps[j][r], cfg.layers[j], cache)
+            if aux is not None:
+                aux_sum = aux_sum + aux
+            if caches is not None:
+                for key, v in nc.items():
+                    if key == "len":
+                        new_len[j] = v
+                    elif v is not cache[key]:     # a recurrent state
+                        stack[key][r].copy_(v)
+        period_aux.append(aux_sum)
+    aux_total = aux_total + torch.sum(torch.stack(period_aux))
+    new_caches = None
+    if caches is not None:
+        blocks = {}
+        for j in range(p):
+            stack = dict(caches["blocks"][f"pos{j}"])
+            if j in new_len:
+                stack["len"] = new_len[j]
+            blocks[f"pos{j}"] = stack
+        new_caches = {"blocks": blocks, "tail": []}
+    for j, lp in enumerate(params["tail"]):
+        cache = caches["tail"][j] if caches is not None else None
+        h, nc, aux = body(h, lp, cfg.layers[p * k + j], cache)
+        if aux is not None:
+            aux_total = aux_total + aux
+        if caches is not None:
+            new_caches["tail"].append(nc)
+    return h, new_caches, aux_total
+
+
 def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            caches: Optional[List] = None, use_lut: bool = False,
+            caches=None, use_lut: bool = False,
             enc_input: Optional[torch.Tensor] = None,
             remat: bool = False
-            ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
+            ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """tokens: (B, S) int -> logits (B, S, vocab_padded).  Returns (logits,
-    new_caches, aux_loss).  With ``remat`` and grad enabled, each layer
-    body runs under ``torch.utils.checkpoint`` (non-reentrant), the
+    new_caches, aux_loss).  ``params`` is either layout and ``caches``
+    ``make_caches``' tree for it.  With ``remat`` and grad enabled, each
+    layer body runs under ``torch.utils.checkpoint`` (non-reentrant), the
     counterpart of the JAX package's ``jax.checkpoint(...,
     nothing_saveable)``: backward recomputes the layer instead of keeping
     its activations, and no number changes.  A cached call (decode, which
@@ -285,7 +432,7 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
         enc_out = _encode(cfg, sh, params, enc_input, use_lut)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    new_caches: Optional[List] = [] if caches is not None else None
+    new_caches = [] if caches is not None else None
 
     def layer_body(h, lp, spec, cache):
         aux = None
@@ -314,13 +461,17 @@ def forward(cfg: ModelCfg, sh: L.ShardCfg, params, tokens: torch.Tensor,
     if remat and caches is None and torch.is_grad_enabled():
         body = functools.partial(torch.utils.checkpoint.checkpoint,
                                  layer_body, use_reentrant=False)
-    for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
-        cache = caches[i] if caches is not None else None
-        h, new_cache, aux = body(h, lp, spec, cache)
-        if aux is not None:
-            aux_total = aux_total + aux
-        if new_caches is not None:
-            new_caches.append(new_cache)
+    if "blocks" in params:
+        h, new_caches, aux_total = _forward_stacked(cfg, params, caches, h,
+                                                    body, aux_total)
+    else:
+        for i, (lp, spec) in enumerate(zip(params["layers"], cfg.layers)):
+            cache = caches[i] if caches is not None else None
+            h, new_cache, aux = body(h, lp, spec, cache)
+            if aux is not None:
+                aux_total = aux_total + aux
+            if new_caches is not None:
+                new_caches.append(new_cache)
 
     h = L.apply_norm(cfg.norm, params["final_norm"], h, use_lut)
     head = (params["embed"].T if cfg.tie_embeddings
@@ -357,10 +508,29 @@ def _one_cache(cfg: ModelCfg, spec: LayerSpec, batch: int, max_len: int,
 
 
 def make_caches(cfg: ModelCfg, sh: L.ShardCfg, batch: int, max_len: int,
-                device=None):
+                device=None, scan_layers: bool = False):
+    """Empty caches: one dict per layer, or with ``scan_layers`` the
+    stacked tree ``{"blocks": {"pos{j}": ...}, "tail": [...]}``, each
+    tensor of position j with a leading axis of ``reps``.  A KV cache's
+    ``len`` is a host int (the JAX package keeps a device int32 per
+    layer): a stacked position has one, shared by its ``reps`` layers,
+    which always advance together.  ``forward`` writes a step into the
+    stacked tensors in place and allocates no new stack."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [_one_cache(cfg, spec, batch, max_len, dev) for spec in cfg.layers]
+    if not scan_layers:
+        return [_one_cache(cfg, spec, batch, max_len, dev)
+                for spec in cfg.layers]
+    p, k = scan_split(cfg)
+    blocks = {}
+    for j in range(p):
+        one = _one_cache(cfg, cfg.layers[j], batch, max_len, dev)
+        blocks[f"pos{j}"] = {
+            key: v if key == "len" else v[None].repeat(k, *[1] * v.dim())
+            for key, v in one.items()}
+    tail = [_one_cache(cfg, spec, batch, max_len, dev)
+            for spec in cfg.layers[p * k:]]
+    return {"blocks": blocks, "tail": tail}
 
 
 def _one_cache_spec(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg):
@@ -384,10 +554,18 @@ def _one_cache_spec(cfg: ModelCfg, spec: LayerSpec, sh: L.ShardCfg):
             "h": P(sh.bdp, htp, None), "m": P(sh.bdp, htp, None)}
 
 
-def cache_specs(cfg: ModelCfg, sh: L.ShardCfg):
-    """The partition specs of ``make_caches``' tree, one dict per layer (a
-    KV cache's ``len`` is a host int here; its spec is kept)."""
-    return [_one_cache_spec(cfg, spec, sh) for spec in cfg.layers]
+def cache_specs(cfg: ModelCfg, sh: L.ShardCfg, scan_layers: bool = False):
+    """The partition specs of ``make_caches``' tree (a KV cache's ``len`` is
+    a host int here; its spec is the JAX package's all the same), stacked
+    specs ``P(None, *spec)`` with ``scan_layers``."""
+    if not scan_layers:
+        return [_one_cache_spec(cfg, spec, sh) for spec in cfg.layers]
+    p, k = scan_split(cfg)
+    blocks = {f"pos{j}": {key: P(None, *s) for key, s in
+                          _one_cache_spec(cfg, cfg.layers[j], sh).items()}
+              for j in range(p)}
+    tail = [_one_cache_spec(cfg, spec, sh) for spec in cfg.layers[p * k:]]
+    return {"blocks": blocks, "tail": tail}
 
 
 def decode_step(cfg: ModelCfg, sh: L.ShardCfg, params, token, pos, caches,

@@ -431,10 +431,6 @@ def test_train_reduces_loss_and_resumes(tmp_path, capsys):
 def test_train_kept_differences_raise(tmp_path):
     from repro_torch.launch.mesh import Mesh
     tc = TrainCfg(steps=1, ckpt_dir=str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        train("gpt2_small", TrainCfg(steps=1, scan_layers=True,
-                                     ckpt_dir=str(tmp_path / "ck")),
-              device="cpu")
     with pytest.raises(NotImplementedError, match="one card"):
         train("gpt2_small", tc, mesh=Mesh(("data", "model"), (2, 1)),
               device="cpu")
